@@ -1,0 +1,71 @@
+"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
+use into `_build/<name>-<hash of the source>.so` for `sm_90a`; a changed
+source gets a new file, so a stale library is never loaded. Nothing is
+compiled or loaded at import time: the CPU tests import every module on a
+machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}        # name -> nvcc's ptxas report
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels are built from csrc/ at first use")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if needed and return the loaded library."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        src = os.path.join(CSRC_DIR, f"{name}.cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha1(f.read()).hexdigest()[:12]
+        so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+            os.replace(tmp, so)
+            build_logs[name] = proc.stderr
+        lib = ctypes.CDLL(so)
+        lib.dat_error_string.argtypes = [ctypes.c_int]
+        lib.dat_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a kernel's C entry."""
+    if err != 0:
+        msg = lib.dat_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

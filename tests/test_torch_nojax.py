@@ -1,0 +1,83 @@
+"""The port runs where JAX is not installed (the GPU machine): every module
+of detectandtrack_tpu_torch imports, and the slice runs detect → track on
+the CPU, in a process where `import jax` / `import flax` fail."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCK_JAX = """
+import sys
+for name in ("jax", "jaxlib", "flax"):
+    sys.modules[name] = None
+"""
+
+_SLICE = _BLOCK_JAX + """
+import importlib, pkgutil
+import numpy as np, torch
+import detectandtrack_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in mods:
+    importlib.import_module(name)
+from detectandtrack_tpu.core.config import load_cfg
+from detectandtrack_tpu.tracking.tracker import Tracker, TrackerConfig
+from detectandtrack_tpu_torch.engine.inference import (
+    clip_slice, detections_to_frames, make_detect_fn)
+from detectandtrack_tpu_torch.models.detector import build_model
+cfg = load_cfg(opts=[
+    "MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
+    "VIDEO.VIDEO_ON", True, "VIDEO.NUM_FRAMES", 2,
+    "VIDEO.TIME_KERNEL_DIM", "[3, 1, 1, 1, 1]",
+    "RPN.PRE_NMS_TOP_N_TEST", 64, "RPN.POST_NMS_TOP_N_TEST", 16,
+    "TEST.DETECTIONS_PER_IM", 4, "TEST.SCORE_THRESH", -1.0,
+    "TEST.SHAPE_BUCKETS", "[[64, 96]]",
+    "KRCNN.NUM_STACKED_CONVS", 2, "KRCNN.CONV_HEAD_DIM", 32])
+model = build_model(cfg, seed=0)
+clip = torch.from_numpy(np.random.default_rng(0).normal(
+    size=(1, 2, 64, 96, 3)).astype(np.float32))
+det = make_detect_fn(model)(clip)
+assert tuple(det["boxes"].shape) == (1, 4, 8)
+assert tuple(det["keypoints"].shape) == (1, 4, 2, 15, 4)
+assert all(torch.isfinite(v).all() for v in det.values()
+           if v.is_floating_point())
+tracker = Tracker(TrackerConfig(score_thresh=0.0))
+for fr in detections_to_frames(clip_slice(det, 0), 2, 1.0):
+    ids = tracker.update(fr["boxes"], fr["scores"], fr["keypoints"],
+                         fr["features"], fr["valid"])
+assert (ids >= 0).sum() == int(det["valid"].sum())
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+          "flax") and sys.modules[m] is not None]
+assert not loaded, loaded
+print("modules", len(mods))
+"""
+
+
+def _run(code, cwd, timeout=300):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_and_runs_without_jax():
+    proc = _run(_SLICE, REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "modules" in proc.stdout
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    """No CUDA device (this machine), and a directory holding only
+    chip_smoke.py: both exit nonzero and print no result line."""
+    run_smoke = _BLOCK_JAX + (
+        "import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')")
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    for cwd in (REPO, str(tmp_path)):
+        env = dict(os.environ)
+        env.pop("PYTHONPATH", None)
+        proc = subprocess.run([sys.executable, "-c", run_smoke], cwd=cwd,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0, (cwd, proc.stdout)
+        assert '"ok": true' not in proc.stdout
