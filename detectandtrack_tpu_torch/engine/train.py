@@ -1,0 +1,261 @@
+"""Training on one device: loss forward, SGD step (port of
+detectandtrack_tpu/engine/train.py without its shard_map path).
+
+`make_train_step(model, cfg)` returns `step_fn(state, batch) → (state,
+metrics)`: forward with targets and losses, backward through the RoIAlign
+and conv1 kernels' autograd Functions, then the update of `make_optimizer`
+(clip by global norm → masked weight decay → SGD with momentum → zero for
+the frozen stages), in place on the model's parameters. After a step each
+parameter's `.grad` holds that step's gradient.
+
+Batch contract (padded, fixed shapes, tensors on the model's device):
+  clips         (B, T, H, W, 3) float32
+  gt_boxes      (B, G, 4·T)
+  gt_keypoints  (B, G, T, K, 3)
+  gt_valid      (B, G) bool
+
+Random sampling enters as draws (see engine/targets.py): a `Draws`
+callable gives, for a sampling stage ("rpn" or "proposals") and its
+(batch, candidates) size, the uniforms the fg and bg samplers rank by. By
+default they come from a CPU `torch.Generator` seeded by (RNG_SEED, step),
+so a run on any device samples the same rows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from detectandtrack_tpu.ops.anchors import shifted_anchor_field
+
+from ..models.detector import GeneralizedRCNN
+from ..models.rpn import anchor_cell_for_level, flatten_rpn_outputs
+from ..utils.lr_policy import make_schedule
+from ..utils.params import flax_path
+from . import losses as L
+from . import targets as T
+
+Draws = Callable[[str, int, int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Dict[str, nn.Parameter]      # the model's, by port name
+    momentum: Dict[str, torch.Tensor]    # SGD trace of the trained ones
+    step: int
+
+
+def generator_draws(seed: int, step: int) -> Draws:
+    """Draws from a CPU generator seeded by (seed, step)."""
+    gen = torch.Generator().manual_seed(seed * 2 ** 32 + step)
+
+    def draw(stage: str, b: int, n: int):
+        u = torch.rand((2, b, n), generator=gen)
+        return u[0], u[1]
+
+    return draw
+
+
+def _anchor_field_all_levels(cfg, maps) -> np.ndarray:
+    """Concatenated anchor field across the RPN levels' (B, T, H, W, C)
+    maps, in the order of the concatenated RPN outputs."""
+    fields = []
+    for li, (lvl, fmap) in enumerate(zip(
+            range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1), maps)):
+        stride = 2 ** lvl
+        fields.append(shifted_anchor_field(
+            anchor_cell_for_level(cfg, li, stride), stride, fmap.shape[2],
+            fmap.shape[3]))
+    return np.concatenate(fields, axis=0)
+
+
+def _stack(rows):
+    """Per-image NamedTuples → one NamedTuple of (B, ...) tensors."""
+    return type(rows[0])(*[torch.stack(f) for f in zip(*rows)])
+
+
+def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
+                  gt_boxes: torch.Tensor, gt_keypoints: torch.Tensor,
+                  gt_valid: torch.Tensor, draws: Draws
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full training forward → (total loss, loss terms), with graphs."""
+    cfg = model.cfg
+    t = model.num_frames
+    b = clips.shape[0]
+    dev = clips.device
+    image_hw = (float(clips.shape[2]), float(clips.shape[3]))
+
+    pyramid = model.features(clips)
+    (tubes, _, p_valid), rpn_raw = model.propose(pyramid, image_hw,
+                                                 train=True)
+
+    # ---- RPN losses over the concatenated anchor field ----
+    maps = [pyramid[f"p{l}"] for l in range(cfg.FPN.RPN_MIN_LEVEL,
+                                            cfg.FPN.RPN_MAX_LEVEL + 1)]
+    anchors = torch.as_tensor(_anchor_field_all_levels(cfg, maps),
+                              device=dev)
+    flat = [flatten_rpn_outputs(lg, dl, t) for lg, dl in rpn_raw]
+    logits_all = torch.cat([f[0] for f in flat], dim=1)
+    deltas_all = torch.cat([f[1] for f in flat], dim=1)
+    u_fg, u_bg = draws("rpn", b, anchors.shape[0])
+    rpn_terms = []
+    for i in range(b):
+        tgt = T.rpn_targets(
+            anchors, gt_boxes[i], gt_valid[i], t, image_hw, u_fg[i].to(dev),
+            u_bg[i].to(dev), cfg.RPN.POSITIVE_OVERLAP,
+            cfg.RPN.NEGATIVE_OVERLAP, cfg.RPN.BATCH_SIZE_PER_IM,
+            cfg.RPN.FG_FRACTION, float(cfg.RPN.STRADDLE_THRESH))
+        rpn_terms.append(L.rpn_losses(logits_all[i], deltas_all[i],
+                                      tgt.labels, tgt.bbox_targets,
+                                      cfg.RPN.SMOOTH_L1_BETA))
+    rpn_cls = torch.stack([c for c, _ in rpn_terms]).mean()
+    rpn_box = torch.stack([bx for _, bx in rpn_terms]).mean()
+
+    # ---- Proposal sampling + box head ----
+    u_fg, u_bg = draws("proposals", b, tubes.shape[1] + gt_boxes.shape[1])
+    ptgt = _stack([T.proposal_targets(
+        tubes[i], p_valid[i], gt_boxes[i], gt_keypoints[i], gt_valid[i], t,
+        u_fg[i].to(dev), u_bg[i].to(dev), cfg.FAST_RCNN.BATCH_SIZE_PER_IM,
+        cfg.FAST_RCNN.FG_FRACTION, cfg.FAST_RCNN.FG_THRESH,
+        cfg.FAST_RCNN.BG_THRESH_HI, cfg.FAST_RCNN.BG_THRESH_LO,
+        cfg.FAST_RCNN.BBOX_REG_WEIGHTS) for i in range(b)])
+
+    s = ptgt.rois.shape[1]
+    pooled = model.roi_transform(pyramid, ptgt.rois,
+                                 cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
+                                 cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO)
+    cls_logits, deltas, _ = model.box_head(pooled)
+    cls_loss, box_loss = L.fast_rcnn_losses(
+        cls_logits, deltas.reshape(b * s, cfg.MODEL.NUM_CLASSES, t, 4),
+        ptgt.labels.reshape(b * s), ptgt.bbox_targets.reshape(b * s, 4 * t),
+        ptgt.bbox_weights.reshape(b * s), ptgt.valid.reshape(b * s),
+        cfg.FAST_RCNN.SMOOTH_L1_BETA)
+
+    total = rpn_cls + rpn_box + cls_loss + box_loss
+    metrics = {"loss_rpn_cls": rpn_cls, "loss_rpn_bbox": rpn_box,
+               "loss_cls": cls_loss, "loss_bbox": box_loss}
+
+    # ---- Keypoint head on the first M (fg-first) RoIs ----
+    if cfg.MODEL.KEYPOINTS_ON:
+        kp = min(cfg.KRCNN.TRAIN_MAX_ROIS_PER_IM or s, s)
+        kp_rois = ptgt.rois[:, :kp]                       # (B, KP, 4·T)
+        kp_pooled = model.roi_transform(pyramid, kp_rois,
+                                        cfg.KRCNN.ROI_XFORM_RESOLUTION,
+                                        cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO)
+        hm_logits = model.kps_head(kp_pooled)             # (B·KP, T, S, S, K)
+        hs = hm_logits.shape[2]
+        n_kp = cfg.KRCNN.NUM_KEYPOINTS
+        bins, w = T.keypoint_heatmap_targets(
+            kp_rois.reshape(-1, 4),
+            ptgt.keypoint_targets[:, :kp].reshape(-1, n_kp, 3), hs)
+        fg = ptgt.is_fg[:, :kp].reshape(-1).float().repeat_interleave(t)
+        kp_loss = L.keypoint_loss(hm_logits.reshape(-1, hs, hs, n_kp), bins,
+                                  w * fg[:, None],
+                                  cfg.KRCNN.NORMALIZE_BY_VISIBLE_KEYPOINTS,
+                                  cfg.KRCNN.LOSS_WEIGHT)
+        total = total + kp_loss
+        metrics["loss_kps"] = kp_loss
+
+    metrics["loss_total"] = total
+    return total, metrics
+
+
+def _frozen_stages(cfg) -> set:
+    if cfg.RESNETS.FREEZE_AT < 1:
+        return set()
+    return {"conv1"} | {f"res{s}"
+                        for s in range(2, cfg.RESNETS.FREEZE_AT + 1)}
+
+
+class SGDMomentum:
+    """`make_optimizer`'s optax chain: clip_by_global_norm (over every
+    gradient, frozen ones included) → weight decay on the decay mask (conv
+    and fc kernels) and WEIGHT_DECAY_BN on the rest → SGD trace
+    m = g + μ·m → update −lr(step)·m, zero for the frozen stages. The masks
+    come from each parameter's flax name (`utils.params.flax_path`)."""
+
+    def __init__(self, cfg, params: Dict[str, torch.Tensor]):
+        solver = cfg.SOLVER
+        self.schedule = make_schedule(solver)
+        self.clip = solver.CLIP_GRAD_NORM
+        self.decay_rate = solver.WEIGHT_DECAY
+        self.decay_bn_rate = solver.WEIGHT_DECAY_BN
+        self.mu = solver.MOMENTUM
+        frozen_names = _frozen_stages(cfg)
+        self.decay, self.frozen = set(), set()
+        for key, p in params.items():
+            names = flax_path(key)
+            if not ("bn" in names or names[-1] == "bias" or p.ndim <= 1):
+                self.decay.add(key)
+            if any(n.split("_")[0] in frozen_names for n in names):
+                self.frozen.add(key)
+
+    def update(self, state: TrainState) -> None:
+        """One step on `state` in place, from the parameters' `.grad`
+        (a parameter without one has a zero gradient)."""
+        grads = {k: p.grad for k, p in state.params.items()
+                 if p.grad is not None}
+        if self.clip > 0 and grads:
+            norm = torch.sqrt(torch.stack(
+                [g.float().square().sum() for g in grads.values()]).sum())
+            keep = norm < self.clip
+            grads = {k: torch.where(keep, g, (g / norm) * self.clip)
+                     for k, g in grads.items()}
+        lr = self.schedule(state.step)
+        with torch.no_grad():
+            for key, p in state.params.items():
+                if key in self.frozen:
+                    continue
+                g = grads.get(key)
+                if g is None:
+                    g = torch.zeros_like(p)
+                if self.decay_rate > 0 and key in self.decay:
+                    g = g + self.decay_rate * p
+                if self.decay_bn_rate > 0 and key not in self.decay:
+                    g = g + self.decay_bn_rate * p
+                m = state.momentum.get(key)
+                m = g if m is None else g + self.mu * m
+                state.momentum[key] = m
+                p.add_(m * -lr)
+
+
+def make_optimizer(cfg, model: nn.Module) -> SGDMomentum:
+    return SGDMomentum(cfg, dict(model.named_parameters()))
+
+
+def create_train_state(cfg, model: nn.Module) -> TrainState:
+    """State over the model's parameters. Frozen stages take no update, so
+    their gradient is computed only where the global-norm clip reads it
+    (CLIP_GRAD_NORM > 0), as JAX's clip sees every gradient."""
+    params = dict(model.named_parameters())
+    frozen = make_optimizer(cfg, model).frozen
+    for key, p in params.items():
+        p.requires_grad_(key not in frozen or cfg.SOLVER.CLIP_GRAD_NORM > 0)
+    return TrainState(params=params, momentum={}, step=0)
+
+
+def make_train_step(model: GeneralizedRCNN, cfg):
+    """→ step_fn(state, batch, draws=None) → (state, metrics): one SGD step
+    on one device; `draws` defaults to `generator_draws(RNG_SEED, step)`.
+    Metrics are detached 0-d tensors on the device."""
+    opt = make_optimizer(cfg, model)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                draws: Optional[Draws] = None):
+        if draws is None:
+            draws = generator_draws(cfg.RNG_SEED, state.step)
+        for p in state.params.values():
+            p.grad = None
+        total, metrics = train_forward(
+            model, batch["clips"], batch["gt_boxes"], batch["gt_keypoints"],
+            batch["gt_valid"], draws)
+        total.backward()
+        opt.update(state)
+        state = TrainState(state.params, state.momentum, state.step + 1)
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step_fn

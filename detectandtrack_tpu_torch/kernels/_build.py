@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
-use into `_build/<name>-<hash of the source>.so` for `sm_90a`; a changed
-source gets a new file, so a stale library is never loaded. Nothing is
+use (or by `build`, which runs one nvcc per source in parallel) into
+`_build/<name>-<hash of the source>.so` for `sm_90a`; a changed source gets
+a new file, so a stale library is never loaded. Nothing is
 compiled or loaded at import time: the CPU tests import every module on a
 machine without nvcc.
 """
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -39,25 +40,46 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ at first use")
 
 
+def _so_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def build(names: Sequence[str]) -> None:
+    """Compile every missing `csrc/<name>.cu`, one nvcc each, all started
+    together; raise if any fails."""
+    procs = []
+    for name in names:
+        so = _so_path(name)
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC_DIR, f"{name}.cu")
+        procs.append((name, src, so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, src, so, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{err}")
+            continue
+        os.replace(tmp, so)
+        build_logs[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if needed and return the loaded library."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:12]
-        so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-            os.replace(tmp, so)
-            build_logs[name] = proc.stderr
-        lib = ctypes.CDLL(so)
+        build([name])
+        lib = ctypes.CDLL(_so_path(name))
         lib.dat_error_string.argtypes = [ctypes.c_int]
         lib.dat_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

@@ -2,13 +2,17 @@
 
 Port of detectandtrack_tpu/kernels/conv1.py: `conv1` launches the CUDA
 kernel in `csrc/conv1.cu` for a CUDA tensor and runs the plain PyTorch
-version, `conv1_reference`, for a CPU tensor.
+version, `conv1_reference`, for a CPU tensor. `conv1_autograd` adds the
+gradient to x and the weights, taken from the plain conv's autograd
+(cuDNN on the card), as the JAX package's `_conv1_bwd` takes the vjp of
+`_conv1_reference`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,3 +88,46 @@ def conv1(x: torch.Tensor, k7: torch.Tensor, t: int,
 
 
 conv1.launches = 0
+
+
+def conv1_backward(x: torch.Tensor, k7: torch.Tensor, t: int,
+                   dtype: torch.dtype, grad: torch.Tensor,
+                   needs: Tuple[bool, bool] = (True, True)
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Gradients of conv1 w.r.t. (x, k7) for the output gradient `grad`,
+    each in its input's dtype (None where `needs` says no): the vjp of
+    `conv1_reference`. Counts its calls in `conv1_backward.calls`."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(needs[0])
+        kk = k7.detach().requires_grad_(needs[1])
+        y = conv1_reference(xx, kk, t, dtype)
+        wrt = [v for v, need in zip((xx, kk), needs) if need]
+        got = iter(torch.autograd.grad(y, wrt, grad.to(dtype)))
+    conv1_backward.calls += 1
+    return tuple(next(got) if need else None for need in needs)
+
+
+conv1_backward.calls = 0
+
+
+class _Conv1Function(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k7, t, dtype):
+        ctx.save_for_backward(x, k7)
+        ctx.t, ctx.compute_dtype = t, dtype
+        return conv1(x, k7, t, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, k7 = ctx.saved_tensors
+        dx, dk = conv1_backward(x, k7, ctx.t, ctx.compute_dtype, grad,
+                                tuple(ctx.needs_input_grad[:2]))
+        return dx, dk, None, None
+
+
+def conv1_autograd(x: torch.Tensor, k7: torch.Tensor, t: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """`conv1` with a gradient to x and k7."""
+    if torch.is_grad_enabled() and (x.requires_grad or k7.requires_grad):
+        return _Conv1Function.apply(x, k7, t, dtype)
+    return conv1(x, k7, t, dtype)

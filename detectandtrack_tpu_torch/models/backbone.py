@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.conv1 import conv1
+from ..kernels.conv1 import conv1_autograd
 
 # Per-depth stage block counts (res2..res5).
 STAGE_BLOCKS = {
@@ -160,8 +160,8 @@ class Conv1(nn.Module):
         self.bn = AffineChannel(64, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(conv1(x, self.conv.weight, self.time_kernel,
-                             self.dtype))
+        return self.bn(conv1_autograd(x, self.conv.weight, self.time_kernel,
+                                      self.dtype))
 
 
 class Bottleneck(nn.Module):

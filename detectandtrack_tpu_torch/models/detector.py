@@ -11,7 +11,10 @@ with validity masks, as in the JAX model:
 
 `build_model` rejects configurations off this path (masks, RPN-only,
 soft-NMS, box voting, TTA, C4, center-frame keypoints) with
-NotImplementedError rather than diverging from the reference.
+NotImplementedError rather than diverging from the reference. The same
+model trains: `engine/train.py` runs `features`, `propose(train=True)`,
+`roi_transform` and the heads, and gradients flow through the RoIAlign and
+conv1 kernels' autograd Functions.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from torch import nn
 
 from detectandtrack_tpu.ops.anchors import shifted_anchor_field
 
-from ..kernels.roi_align import assign_fpn_levels, roi_align_multilevel
+from ..kernels.roi_align import (assign_fpn_levels,
+                                 roi_align_multilevel_autograd)
 from ..ops import boxes as box_ops
 from ..ops.keypoints import heatmaps_to_keypoints
 from ..ops.nms import nms_fixed
@@ -78,15 +82,21 @@ class GeneralizedRCNN(nn.Module):
 
     # -- RPN + proposals --------------------------------------------------
 
-    def propose(self, pyramid, image_hw: Tuple[float, float]):
+    def propose(self, pyramid, image_hw: Tuple[float, float],
+                train: bool = False):
         """→ (tubes (B, K, 4T), scores (B, K), valid (B, K)) and the raw
         per-level RPN outputs. Every (level, image) lane shares one batched
-        fixed-budget NMS, as the JAX model vmaps it."""
+        fixed-budget NMS, as the JAX model vmaps it. `train` takes the
+        RPN.*_TRAIN budgets. The kept tubes and scores carry no gradient
+        (JAX's stop_gradient): the RoI losses must not reach the RPN
+        through the roi coordinates."""
         cfg = self.cfg
         t = self.num_frames
         lvls = range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1)
-        pre = cfg.RPN.PRE_NMS_TOP_N_TEST
-        post = cfg.RPN.POST_NMS_TOP_N_TEST
+        pre = (cfg.RPN.PRE_NMS_TOP_N_TRAIN if train
+               else cfg.RPN.PRE_NMS_TOP_N_TEST)
+        post = (cfg.RPN.POST_NMS_TOP_N_TRAIN if train
+                else cfg.RPN.POST_NMS_TOP_N_TEST)
         raw = []
         lvl_tubes, lvl_scores = [], []
         for li, lvl in enumerate(lvls):
@@ -109,8 +119,9 @@ class GeneralizedRCNN(nn.Module):
 
         b = lvl_tubes[0].shape[0]
         n_lvl = len(lvl_tubes)
-        flat_tubes = torch.stack(lvl_tubes).reshape(n_lvl * b, pre, 4 * t)
-        flat_scores = torch.stack(lvl_scores).reshape(n_lvl * b, pre)
+        flat_tubes = torch.stack(lvl_tubes).reshape(
+            n_lvl * b, pre, 4 * t).detach()
+        flat_scores = torch.stack(lvl_scores).reshape(n_lvl * b, pre).detach()
         rep = center_frame_box(flat_tubes, t)
         valid = torch.isfinite(flat_scores)
         if cfg.RPN.MIN_SIZE > 0:
@@ -148,7 +159,7 @@ class GeneralizedRCNN(nn.Module):
         flat_maps = [pyramid[f"p{l}"].reshape((-1,)
                                               + pyramid[f"p{l}"].shape[2:])
                      .contiguous() for l in lvls]
-        pooled = roi_align_multilevel(
+        pooled = roi_align_multilevel_autograd(
             flat_maps, [2 ** l for l in lvls], slab_rois.contiguous(),
             slab_levels.contiguous(), resolution, sampling_ratio)
         c = pooled.shape[-1]
@@ -345,9 +356,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             m.init_parameters(generator)
 
 
-def build_model(cfg, device="cpu", seed: int = 0) -> GeneralizedRCNN:
+def build_model(cfg, device="cpu", seed: int = 0,
+                train: bool = False) -> GeneralizedRCNN:
     """The port's GeneralizedRCNN for `cfg`, initialized from `seed` on the
-    CPU and moved to `device` ("meta" builds it without storage)."""
+    CPU and moved to `device` ("meta" builds it without storage), in eval
+    mode or, with `train`, in train mode for `engine.train`."""
     if cfg.MODEL.TYPE != "generalized_rcnn":
         raise ValueError(f"Unknown MODEL.TYPE {cfg.MODEL.TYPE!r}")
     off = _unsupported(cfg)
@@ -356,8 +369,8 @@ def build_model(cfg, device="cpu", seed: int = 0) -> GeneralizedRCNN:
             "not ported to detectandtrack_tpu_torch yet: " + ", ".join(off))
     with torch.device("meta"):
         model = GeneralizedRCNN(cfg)
-    if torch.device(device).type == "meta":
-        return model.eval()
-    model = model.to_empty(device="cpu")
-    init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    if torch.device(device).type != "meta":
+        model = model.to_empty(device="cpu")
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        model = model.to(device)
+    return model.train(train)

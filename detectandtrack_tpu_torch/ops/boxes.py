@@ -82,3 +82,29 @@ def filter_small_boxes(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
     w = boxes[..., 2] - boxes[..., 0] + 1.0
     h = boxes[..., 3] - boxes[..., 1] + 1.0
     return (w >= min_size) & (h >= min_size)
+
+
+def bbox_transform_inv(boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                       weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0)
+                       ) -> torch.Tensor:
+    """Regression targets taking `boxes` to `gt_boxes` (aligned, (..., 4))."""
+    boxes = boxes.float()
+    gt_boxes = gt_boxes.float()
+    wx, wy, ww, wh = weights
+    ex_w = boxes[..., 2] - boxes[..., 0] + 1.0
+    ex_h = boxes[..., 3] - boxes[..., 1] + 1.0
+    ex_cx = boxes[..., 0] + 0.5 * ex_w
+    ex_cy = boxes[..., 1] + 0.5 * ex_h
+    gt_w = gt_boxes[..., 2] - gt_boxes[..., 0] + 1.0
+    gt_h = gt_boxes[..., 3] - gt_boxes[..., 1] + 1.0
+    gt_cx = gt_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = gt_boxes[..., 1] + 0.5 * gt_h
+    # Guard degenerate boxes (padding rows): no division by zero, no log(0).
+    ex_w = ex_w.clamp(min=1e-6)
+    ex_h = ex_h.clamp(min=1e-6)
+    gt_w = gt_w.clamp(min=1e-6)
+    gt_h = gt_h.clamp(min=1e-6)
+    return torch.stack([wx * (gt_cx - ex_cx) / ex_w,
+                        wy * (gt_cy - ex_cy) / ex_h,
+                        ww * torch.log(gt_w / ex_w),
+                        wh * torch.log(gt_h / ex_h)], dim=-1)

@@ -63,6 +63,13 @@ def _port_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     return mod, f"{mod}.{leaf}"
 
 
+def flax_path(key: str) -> Tuple[str, ...]:
+    """Port parameter key → the path of its flax leaf (`a.b.weight` →
+    ("a", "b", "kernel")), the inverse of the bridge's naming."""
+    *mod, leaf = key.split(".")
+    return tuple(mod) + ("kernel" if leaf == "weight" else leaf,)
+
+
 def jax_params_to_state_dict(params: Mapping, model: nn.Module
                              ) -> Dict[str, torch.Tensor]:
     """flax params (with or without the top "params" key) → a complete f32
@@ -104,12 +111,11 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
                          f"unknown {extra}")
     tree: Dict[str, Any] = {}
     for key, value in state_dict.items():
-        mod_path, leaf = key.rsplit(".", 1)
-        arr = _to_jax(model.get_submodule(mod_path),
+        *mod, leaf = flax_path(key)
+        arr = _to_jax(model.get_submodule(".".join(mod)),
                       value.detach().float().cpu().numpy())
         node = tree
-        for part in mod_path.split("."):
+        for part in mod:
             node = node.setdefault(part, {})
-        node["kernel" if leaf == "weight" else leaf] = np.ascontiguousarray(
-            arr)
+        node[leaf] = np.ascontiguousarray(arr)
     return {"params": tree}

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from detectandtrack_tpu_torch.kernels.conv1 import conv1, conv1_reference
+from detectandtrack_tpu_torch.kernels import roi_align as ra
+from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_autograd,
+                                                    conv1_reference)
 from detectandtrack_tpu_torch.kernels.roi_align import (
     roi_align_multilevel, roi_align_multilevel_reference)
 
@@ -88,3 +90,171 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
         roi_align_multilevel([feats[0].transpose(1, 2)], [4], rois, levels)
     with pytest.raises(ValueError):
         roi_align_multilevel(feats, [4], rois, levels.long())
+
+
+def _maps(rng, cuda, dtype, s=3, c=40, hw=((80, 96), (37, 45), (19, 23))):
+    return [torch.from_numpy(rng.normal(size=(s, h, w, c)).astype(
+        np.float32)).to(cuda, dtype) for h, w in hw]
+
+
+def _pair_rois(rng, cuda, n=23):
+    rois = rng.uniform(-30, 380, (n, 4)).astype(np.float32)
+    rois[:, 2:] = rois[:, :2] + rng.uniform(-1, 200, (n, 2))
+    rois[0] = [40, 40, 40, 40]                     # degenerate
+    rois[1] = [-300, -200, -20, -10]               # outside the map
+    rois[2] = [10.3, 20.7, 10.9, 21.1]             # sub-pixel
+    return torch.from_numpy(rois).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [7, 14])
+@pytest.mark.parametrize("per_roi_levels", [True, False])
+def test_roi_align_pairs_kernel_matches_plain(cuda, dtype, p, per_roi_levels):
+    rng = np.random.default_rng(2)
+    feats = _maps(rng, cuda, dtype)
+    rois = _pair_rois(rng, cuda)
+    n = rois.shape[0]
+    slabs = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
+    levels = (torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))
+              .to(cuda) if per_roi_levels else None)
+    before = ra.roi_align_pairs.launches
+    got = ra.roi_align_pairs(feats, [4, 8, 16], rois, slabs, levels, p, 2)
+    assert ra.roi_align_pairs.launches == before + 1
+    ref = ra.roi_align_pairs_reference(feats, [4, 8, 16], rois, slabs, levels,
+                                       p, 2)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, p, p, 40)
+    assert (got.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [7, 14])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, p):
+    """f32 atomics sum in a varying order: held to the plain index_add_
+    version at the same tolerances as the forward."""
+    rng = np.random.default_rng(3)
+    feats = _maps(rng, cuda, dtype)
+    shapes = [f.shape for f in feats]
+    rois = _pair_rois(rng, cuda)
+    n = rois.shape[0]
+    slabs = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
+    levels = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
+    grad = torch.from_numpy(rng.normal(size=(n, p, p, 40)).astype(
+        np.float32)).to(cuda, dtype)
+    before = ra.roi_align_backward.launches
+    got = ra.roi_align_backward(shapes, dtype, [4, 8, 16], rois, slabs,
+                                levels, grad, p, 2)
+    assert ra.roi_align_backward.launches == before + 1
+    ref = ra.roi_align_backward_reference(shapes, dtype, [4, 8, 16], rois,
+                                          slabs, levels, grad, p, 2)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert (g.float() - r.float()).abs().max().item() <= _tol(r, dtype)
+    assert any(r.abs().sum() > 0 for r in ref)
+
+
+def test_roi_align_function_on_card_matches_cpu(cuda):
+    """The slab-grouped autograd path: K1 forward, the scatter kernel
+    backward, against the CPU path's gradients."""
+    rng = np.random.default_rng(4)
+    cpu = [f.cpu().requires_grad_() for f in _maps(rng, cuda, torch.float32)]
+    gpu = [f.detach().to(cuda).requires_grad_() for f in cpu]
+    rois = _pair_rois(rng, cuda, 27).reshape(3, 9, 4).contiguous()
+    levels = torch.from_numpy(rng.integers(0, 3, (3, 9)).astype(
+        np.int32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(3, 9, 7, 7, 40)).astype(np.float32))
+    fwd, bwd = roi_align_multilevel.launches, ra.roi_align_backward.launches
+    out = ra.roi_align_multilevel_autograd(gpu, [4, 8, 16], rois, levels)
+    got = torch.autograd.grad(out, gpu, g.to(cuda))
+    assert roi_align_multilevel.launches == fwd + 1
+    assert ra.roi_align_backward.launches == bwd + 1
+    want = torch.autograd.grad(ra.roi_align_multilevel_autograd(
+        cpu, [4, 8, 16], rois.cpu(), levels.cpu()), cpu, g)
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4
+
+
+def test_conv1_function_gradients_match_plain(cuda):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(1, 3, 37, 41, 3)).astype(
+        np.float32)).to(cuda).requires_grad_()
+    k7 = (torch.from_numpy(rng.normal(size=(3, 7, 7, 3, 64)).astype(
+        np.float32)) * 0.05).to(cuda).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(1, 3, 19, 21, 64)).astype(
+        np.float32)).to(cuda)
+    got = torch.autograd.grad(conv1_autograd(x, k7, 3, torch.float32),
+                              [x, k7], g)
+    want = torch.autograd.grad(conv1_reference(x, k7, 3, torch.float32),
+                               [x, k7], g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            1.0, b.abs().max().item())
+
+
+def test_box_loss_gradient_reaches_fpn_and_backbone_on_card(cuda):
+    """The autograd repair on the card: the Fast R-CNN loss of a small
+    f32 model reaches the FPN maps and the backbone through the RoIAlign
+    Function, never the RPN head. Against the CPU path: losses 1e-4; the
+    gradient at every FPN level and of the box head 1e-4 of its largest
+    entry plus 1e-9. The backbone's weight gradients of this loss alone
+    are only required to be nonzero: cuDNN's and the CPU's convolution
+    backward part there by up to 3% of a gradient's largest entry (res3),
+    with the pyramid gradients that feed them equal to 4e-6."""
+    from bench import make_realistic_tubes
+    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.train import (generator_draws,
+                                                        train_forward)
+    from detectandtrack_tpu_torch.models.detector import build_model
+    cfg = load_cfg(opts=[
+        "MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
+        "VIDEO.VIDEO_ON", True, "VIDEO.NUM_FRAMES", 2,
+        "VIDEO.TIME_KERNEL_DIM", "[3, 1, 1, 1, 1]",
+        "RPN.PRE_NMS_TOP_N_TRAIN", 100, "RPN.POST_NMS_TOP_N_TRAIN", 32,
+        "RPN.BATCH_SIZE_PER_IM", 32, "FAST_RCNN.BATCH_SIZE_PER_IM", 32,
+        "KRCNN.NUM_STACKED_CONVS", 2, "KRCNN.CONV_HEAD_DIM", 32])
+    rng = np.random.default_rng(6)
+    valid = np.zeros((2, 10), bool)
+    valid[:, :3] = True
+    batch = {"clips": torch.from_numpy(rng.normal(size=(2, 2, 64, 96, 3))
+                                       .astype(np.float32)),
+             "gt_boxes": torch.from_numpy(make_realistic_tubes(
+                 2, 10, 2, 64, 96, seed=8)),
+             "gt_keypoints": torch.zeros((2, 10, 2, 15, 3)),
+             "gt_valid": torch.from_numpy(valid)}
+    runs = []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev, seed=0, train=True)
+        pyramid = {}
+
+        def features(clips, inner=model.features, pyramid=pyramid):
+            out = inner(clips)
+            for name, level in out.items():
+                level.retain_grad()
+                pyramid[name] = level
+            return out
+
+        model.features = features
+        b = {k: v.to(dev) for k, v in batch.items()}
+        _, m = train_forward(model, b["clips"], b["gt_boxes"],
+                             b["gt_keypoints"], b["gt_valid"],
+                             generator_draws(0, 0))
+        (m["loss_cls"] + m["loss_bbox"]).backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        grads.update({k: v.grad.cpu() for k, v in pyramid.items()
+                      if v.grad is not None})
+        runs.append(({k: float(v) for k, v in m.items()}, grads))
+    (cpu_loss, cpu), (gpu_loss, gpu) = runs
+    for k, v in cpu_loss.items():
+        assert abs(gpu_loss[k] - v) <= 1e-4 * max(1.0, abs(v)), k
+    assert set(cpu) == set(gpu)
+    for prefix in ("p2", "fpn.posthoc_p2.", "fpn.lateral_res3.",
+                   "backbone.res3_", "backbone.res5_"):
+        keys = [k for k in gpu if k.startswith(prefix)]
+        assert keys and any(gpu[k].abs().sum() > 0 for k in keys), prefix
+    assert not any(k.startswith("rpn_head.") and gpu[k].any() for k in gpu)
+    for k in cpu:
+        if k.startswith(("p", "box_head.")):
+            tol = 1e-4 * float(cpu[k].abs().max()) + 1e-9
+            assert (gpu[k] - cpu[k]).abs().max().item() <= tol, k

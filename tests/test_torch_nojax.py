@@ -1,6 +1,7 @@
 """The port runs where JAX is not installed (the GPU machine): every module
-of detectandtrack_tpu_torch imports, and the slice runs detect → track on
-the CPU, in a process where `import jax` / `import flax` fail."""
+of detectandtrack_tpu_torch imports, the slice runs detect → track, and one
+training step of the small model runs on the CPU, in a process where
+`import jax` / `import flax` fail."""
 
 import os
 import shutil
@@ -48,6 +49,27 @@ for fr in detections_to_frames(clip_slice(det, 0), 2, 1.0):
     ids = tracker.update(fr["boxes"], fr["scores"], fr["keypoints"],
                          fr["features"], fr["valid"])
 assert (ids >= 0).sum() == int(det["valid"].sum())
+from detectandtrack_tpu_torch.engine.train import (create_train_state,
+                                                    make_train_step)
+tcfg = load_cfg(opts=[
+    "MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
+    "VIDEO.VIDEO_ON", True, "VIDEO.NUM_FRAMES", 2,
+    "VIDEO.TIME_KERNEL_DIM", "[3, 1, 1, 1, 1]",
+    "RPN.PRE_NMS_TOP_N_TRAIN", 100, "RPN.POST_NMS_TOP_N_TRAIN", 32,
+    "RPN.BATCH_SIZE_PER_IM", 32, "FAST_RCNN.BATCH_SIZE_PER_IM", 32,
+    "KRCNN.NUM_STACKED_CONVS", 2, "KRCNN.CONV_HEAD_DIM", 32,
+    "SOLVER.CLIP_GRAD_NORM", 10.0])
+tmodel = build_model(tcfg, seed=0, train=True)
+state = create_train_state(tcfg, tmodel)
+gt = torch.tensor([[[10.0, 8.0, 50.0, 60.0, 12.0, 8.0, 52.0, 61.0]]])
+batch = {"clips": clip, "gt_boxes": gt,
+         "gt_keypoints": torch.zeros((1, 1, 2, 15, 3)),
+         "gt_valid": torch.ones((1, 1), dtype=torch.bool)}
+before = {k: p.detach().clone() for k, p in state.params.items()}
+state, metrics = make_train_step(tmodel, tcfg)(state, batch)
+assert state.step == 1 and set(metrics) >= {"loss_total", "loss_kps"}
+assert all(torch.isfinite(v) for v in metrics.values())
+assert any(not torch.equal(before[k], p) for k, p in state.params.items())
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
           "flax") and sys.modules[m] is not None]
 assert not loaded, loaded
