@@ -27,20 +27,36 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      bf16 with seeded random weights answers 4 requests of B=2 clips of
      8x800x1344 (3 through detect_with_proposals(run_rpn=True) with
      realistic tubes, 1 through the model's own RPN), the launch counters
-     are checked, and every clip is tracked; then a small f32 model is held
-     against the port's CPU path;
+     are checked, and every clip is tracked;
   8. the training slice at full width: the same model and config in bf16
      takes 1 warm-up and 3 timed SGD steps on one seeded 8x800x1344 clip
      with seeded GT; losses finite, launch counters (conv1 = steps,
      RoIAlign forward = backward = 2 x steps), FPN and res3+ gradients
-     nonzero, parameters moved; then one f32 step of the small R-18 model
-     is held against the port's CPU path (losses and every gradient).
-Then it prints the kernels' JSON line, the nvidia-smi card line and, last,
-{"ok": true, "device": {...}}. It exits nonzero without a CUDA device.
+     nonzero, parameters moved;
+  9. [surface] the rest of the model surface: the kernels against their
+     plain versions at the shapes its paths give them, read from the
+     configs (conv1 at t=1 on 800x1344; K1 on C4's one 1024-wide
+     stride-16 res4 level, P=14, at inference (S=2, K=300) and in
+     training (S=2, K=512), the backward at that training shape; K1 on
+     the mask stage, P=14); then at full width, bf16, seeded weights, 1
+     warm-up and 2 requests of B=2 clips each through C4, dilated C5,
+     FPN+masks, soft-NMS + box voting (3D R-50 T=8), center-frame
+     keypoints (3D R-18 T=3), RPN-only, and the main config's flip TTA
+     (`detect_tta`), and 1 warm-up and 2 training steps each of the mask
+     and the C4 configs, each path with the checks of 7 and 8;
+ 10. parity: small f32 models on the card against the port's CPU path on
+     the same weights and inputs: inference of the golden R-18 T=2 model
+     and of every new branch (R-18 bodies, 64x96), then one training step
+     each of the golden model and of the mask, C4, center-frame and
+     RPN-only branches (losses and every gradient).
+Then it prints the kernels' JSON line (launches summed over the paths),
+the nvidia-smi card line and, last, {"ok": true, "device": {...}}. It exits
+nonzero without a CUDA device.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -69,6 +85,51 @@ TRAIN_OPTS = SMALL_OPTS + [
     "TRAIN.IMS_PER_BATCH", 2, "TRAIN.MAX_GT_PER_IM", 10,
     "SOLVER.BASE_LR", 0.004, "SOLVER.STEPS", "[0]",
     "SOLVER.WARM_UP_ITERS", 10, "SOLVER.CLIP_GRAD_NORM", 10.0]
+C4_CFG = "configs/video/2d_R50_C4_kps.yaml"
+MASK_CFG = "configs/video/2d_R50_FPN_mask_kps.yaml"
+CENTER_CFG = "configs/video/3d_R18_T3_center_kps.yaml"
+RPN_ONLY_CFG = "configs/video/rpn_only_proposals.yaml"
+SURFACE_CFGS = [            # (config, flip TTA) of the [surface] phase
+    (C4_CFG, False),
+    ("configs/video/2d_R50_dilatedC5_kps.yaml", False),
+    (MASK_CFG, False),
+    ("configs/video/3d_R50_T8_softnms_vote.yaml", False),
+    (CENTER_CFG, False),
+    (RPN_ONLY_CFG, False),
+    (BOX_CFG, True),
+]
+SURFACE_TRAIN_CFGS = [MASK_CFG, C4_CFG]
+# The [surface] phase's small f32 models: R-18 bodies at 64x96, narrow
+# heads, small budgets (tests/test_torch_configs.py's sizes).
+SURFACE_SMALL_OPTS = [
+    "MODEL.CONV_BODY", "resnet18", "RESNETS.WIDTH_PER_GROUP", 8,
+    "MODEL.COMPUTE_DTYPE", "float32", "TEST.SHAPE_BUCKETS", "[[64, 96]]",
+    "RPN.PRE_NMS_TOP_N_TEST", 128, "RPN.POST_NMS_TOP_N_TEST", 32,
+    "TEST.DETECTIONS_PER_IM", 12, "TEST.SCORE_THRESH", 0.0,
+    "KRCNN.NUM_STACKED_CONVS", 2, "KRCNN.CONV_HEAD_DIM", 16,
+    "FAST_RCNN.MLP_HEAD_DIM", 64, "MRCNN.DIM_REDUCED", 16,
+    "RPN.PRE_NMS_TOP_N_TRAIN", 100, "RPN.POST_NMS_TOP_N_TRAIN", 32,
+    "RPN.BATCH_SIZE_PER_IM", 32, "FAST_RCNN.BATCH_SIZE_PER_IM", 32,
+    "KRCNN.TRAIN_MAX_ROIS_PER_IM", 16, "MRCNN.TRAIN_MAX_ROIS_PER_IM", 16,
+    "SOLVER.CLIP_GRAD_NORM", 10.0, "SOLVER.BASE_LR", 0.004]
+# Small f32 inference held card vs CPU: (label, config, opts, flip TTA,
+# keypoints held end to end everywhere).
+PARITY_CASES = [("R-18 T=2 golden", None, SMALL_OPTS, False, True)] + [
+    (os.path.basename(path)[:-5] + (" detect_tta" if tta else "") + " R-18",
+     path, SURFACE_SMALL_OPTS, tta, False) for path, tta in SURFACE_CFGS]
+# Two conv libraries' f32 backward differ by up to 1.9e-2 of a gradient's
+# largest entry on these random models: oneDNN vs torch's own convs, both
+# on the CPU (the golden model's res4_0 projection), and cuDNN vs both on
+# the 3-frame R-18 (conv1, through the t=3 res2 convs' input gradient:
+# 1.1e-2), where torch's own convs on the card and the CPU agree to 2e-6.
+CROSS_LIBRARY_GRAD_TOL = 2e-2
+# Small f32 training steps held card vs CPU: (label, config, opts, the
+# gradient bound with cuDNN).
+PARITY_TRAIN_CASES = [("R-18 T=2 golden", None, TRAIN_OPTS, GRAD_REL_TOL)] + [
+    (os.path.basename(path)[:-5] + " R-18", path, SURFACE_SMALL_OPTS, tol)
+    for path, tol in ((MASK_CFG, GRAD_REL_TOL), (C4_CFG, GRAD_REL_TOL),
+                      (CENTER_CFG, CROSS_LIBRARY_GRAD_TOL),
+                      (RPN_ONLY_CFG, GRAD_REL_TOL))]
 
 
 def _card_line() -> str:
@@ -332,24 +393,18 @@ def phase_backward(torch, results):
           f" t=3 f32: {', '.join(errs)}", flush=True)
 
 
-def _train_batch(torch, b, t, h, w, g, n_valid, seed):
-    """A seeded batch in the train-step contract: realistic GT tubes, 15
-    keypoints per frame inside them, `n_valid` valid GT rows per clip."""
+def _train_batch(torch, cfg, b, h, w, g, n_valid, seed):
+    """A seeded batch in the train-step contract for `cfg`, as tensors:
+    realistic GT tubes, 15 keypoints per frame inside them, `n_valid` valid
+    GT rows per clip; with MODEL.MASK_ON, a disc bitmap per GT box and
+    frame, 80% of frames annotated (utils/synthetic.train_batch)."""
     from bench import make_realistic_tubes
-    rng = np.random.default_rng(seed)
-    tubes = make_realistic_tubes(b, g, t, h, w, seed=seed)
-    box = tubes.reshape(b, g, t, 1, 4)
-    u = rng.uniform(size=(b, g, t, 15, 2))
-    kps = np.stack([box[..., 0] + u[..., 0] * (box[..., 2] - box[..., 0]),
-                    box[..., 1] + u[..., 1] * (box[..., 3] - box[..., 1]),
-                    rng.integers(0, 3, size=(b, g, t, 15))], axis=-1)
-    valid = np.zeros((b, g), bool)
-    valid[:, :n_valid] = True
-    return {"clips": torch.from_numpy(rng.standard_normal(
-                size=(b, t, h, w, 3), dtype=np.float32)),
-            "gt_boxes": torch.from_numpy(tubes),
-            "gt_keypoints": torch.from_numpy(kps.astype(np.float32)),
-            "gt_valid": torch.from_numpy(valid)}
+    from detectandtrack_tpu_torch.utils.synthetic import train_batch
+    tubes = make_realistic_tubes(b, g, _frames(cfg), h, w, seed=seed)
+    batch = train_batch(np.random.default_rng(seed), tubes, [n_valid] * b,
+                        (h, w),
+                        cfg.MRCNN.RESOLUTION if cfg.MODEL.MASK_ON else 0)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _track(frames_per_clip):
@@ -370,18 +425,102 @@ def _track(frames_per_clip):
     return n_tracks, linked
 
 
+def _frames(cfg) -> int:
+    return cfg.VIDEO.NUM_FRAMES if cfg.VIDEO.VIDEO_ON else 1
+
+
+def _heads(model):
+    """The RoI heads `model` pools for: one K1 launch each per pass."""
+    return [h for h in ("box_head", "kps_head", "mask_head")
+            if hasattr(model, h)]
+
+
+def _reset_counters():
+    from detectandtrack_tpu_torch.kernels import roi_align as ra
+    from detectandtrack_tpu_torch.kernels.conv1 import conv1
+    conv1.launches = 0
+    ra.roi_align_multilevel.launches = 0
+    ra.roi_align_backward.launches = 0
+
+
+def _read_counters():
+    from detectandtrack_tpu_torch.kernels import roi_align as ra
+    from detectandtrack_tpu_torch.kernels.conv1 import conv1
+    return {"conv1": conv1.launches,
+            "roi_align": ra.roi_align_multilevel.launches,
+            "roi_align_backward": ra.roi_align_backward.launches}
+
+
+def _check_outputs(name, out, shapes, torch):
+    if set(out) != set(shapes):
+        raise RuntimeError(f"{name}: outputs {sorted(out)}, expected "
+                           f"{sorted(shapes)}")
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape:
+            raise RuntimeError(f"{name}: {key} {tuple(out[key].shape)} != "
+                               f"{shape}")
+        if out[key].is_floating_point() and not torch.isfinite(
+                out[key]).all():
+            raise RuntimeError(f"{name}: {key} has non-finite values")
+
+
+def _serve(torch, tag, model, detect, warmup, requests, passes=1):
+    """`detect(*request)` once on `warmup` (cuDNN plans), then timed on each
+    of `requests` with the launch counters reset. Checked: conv1 launched
+    once per pass, K1 once per pass and pooled head (the mask head on the
+    first pass only), no backward; every output finite and of the static
+    shape `detect_output_shapes` gives; some detection valid →
+    (outputs, launches)."""
+    from detectandtrack_tpu_torch.engine.inference import detect_output_shapes
+    detect(*warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    outs, secs = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(detect(*req))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    heads = _heads(model)
+    per_request = {"conv1": passes, "roi_align_backward": 0,
+                   "roi_align": passes * len(heads) - (passes - 1) * int(
+                       "mask_head" in heads)}
+    want = {k: len(requests) * v for k, v in per_request.items()}
+    if launches != want:
+        raise RuntimeError(f"{tag}: launch counters {launches}, expected "
+                           f"{want} for {len(requests)} requests")
+    clips = requests[0][0]
+    shapes = detect_output_shapes(model, clips.shape[0])
+    for out in outs:
+        _check_outputs(tag, out, shapes, torch)
+    n_valid = sum(int(out["valid"].sum()) for out in outs)
+    if n_valid == 0:
+        raise RuntimeError(f"{tag}: no valid detection")
+    b, t, h, w = clips.shape[:4]
+    print(f"[{tag}] {model.cfg.MODEL.COMPUTE_DTYPE}, {len(requests)} "
+          f"requests of B={b} {t}x{h}x{w} after 1 warm-up: per-request s "
+          f"{[round(s, 4) for s in secs]} (median "
+          f"{statistics.median(secs):.4f}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches}; {n_valid} valid "
+          f"detections", flush=True)
+    return outs, launches
+
+
 def phase_slice(torch):
+    """The main inference path: 4 full-width requests, 3 on realistic
+    tubes through the RPN's NMS and 1 through the model's own RPN, then
+    every clip tracked."""
     from bench import make_realistic_tubes
     from detectandtrack_tpu.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.inference import (
         clip_slice, detections_to_frames, make_detect_fn)
-    from detectandtrack_tpu_torch.kernels.conv1 import conv1
-    from detectandtrack_tpu_torch.kernels.roi_align import roi_align_multilevel
     from detectandtrack_tpu_torch.models.detector import build_model
 
     cfg = load_cfg(os.path.join(REPO, BOX_CFG))
     b, t, (h, w) = 2, cfg.VIDEO.NUM_FRAMES, cfg.TEST.SHAPE_BUCKETS[0]
-    k, d = cfg.RPN.POST_NMS_TOP_N_TEST, cfg.TEST.DETECTIONS_PER_IM
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     n_params = sum(p.numel() for p in model.parameters())
@@ -390,205 +529,440 @@ def phase_slice(torch):
     detect = make_detect_fn(model)
     detect_p = make_detect_fn(model, with_proposals=True, run_rpn=True)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    tubes = torch.as_tensor(make_realistic_tubes(b, k, t, h, w)).cuda()
+    tubes = torch.as_tensor(make_realistic_tubes(
+        b, cfg.RPN.POST_NMS_TOP_N_TEST, t, h, w)).cuda()
     requests = [(torch.randn((b, t, h, w, 3), device="cuda", generator=gen),
                  tubes if i < 3 else None) for i in range(4)]
 
     def run(clips, tb):
         return detect_p(clips, tb) if tb is not None else detect(clips)
 
-    run(*requests[0])                       # warm-up (cuDNN plans)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    conv1.launches = 0
-    roi_align_multilevel.launches = 0
-    outs, secs = [], []
-    for clips, tb in requests:
-        t0 = time.perf_counter()
-        out = run(clips, tb)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        outs.append(out)
-    launches = {"conv1": conv1.launches,
-                "roi_align": roi_align_multilevel.launches}
-    peak = torch.cuda.max_memory_allocated()
-    if launches != {"conv1": len(requests), "roi_align": 2 * len(requests)}:
-        raise RuntimeError(f"launch counters {launches} for {len(requests)} "
-                           "forwards (expected conv1 = forwards, "
-                           "roi_align = 2 x forwards)")
-    shapes = {"boxes": (b, d, 4 * t), "scores": (b, d), "valid": (b, d),
-              "features": (b, d, cfg.FAST_RCNN.MLP_HEAD_DIM),
-              "keypoints": (b, d, t, cfg.KRCNN.NUM_KEYPOINTS, 4)}
-    n_valid = 0
-    for out in outs:
-        for key, shape in shapes.items():
-            if tuple(out[key].shape) != shape:
-                raise RuntimeError(f"slice: {key} {tuple(out[key].shape)} "
-                                   f"!= {shape}")
-            if out[key].is_floating_point() and not torch.isfinite(
-                    out[key]).all():
-                raise RuntimeError(f"slice: {key} has non-finite values")
-        n_valid += int(out["valid"].sum())
+    outs, launches = _serve(torch, "slice", model, run, requests[0],
+                            requests)
     frames = [detections_to_frames(clip_slice(out, i), t, 1.0)
               for out in outs for i in range(b)]
     n_tracks, linked = _track(frames)
-    if n_valid == 0 or linked == 0:
-        raise RuntimeError(f"slice: {n_valid} valid detections, {linked} "
-                           "linked across frames")
-    print(f"[slice] {len(requests)} requests of B={b} {t}x{h}x{w}: "
-          f"per-request s {[round(s, 4) for s in secs]} "
-          f"(median {sorted(secs)[len(secs) // 2]:.4f}); launches {launches};"
-          f" peak memory {peak / 2 ** 30:.2f} GiB; {n_valid} valid "
-          f"detections; {n_tracks} track ids, {linked} detections linked",
-          flush=True)
+    if linked == 0:
+        raise RuntimeError("slice: no detection linked across frames")
+    print(f"[slice] tracked: {n_tracks} track ids, {linked} detections "
+          "linked", flush=True)
+    del model, detect, detect_p, requests, outs
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_small_parity(torch):
-    """The golden-test model (R-18, T=2, 64x96, f32) on the card — both
-    kernels on its path — against the port's CPU path on the same weights
-    and clip."""
-    from detectandtrack_tpu.core.config import load_cfg
-    from detectandtrack_tpu_torch.models.detector import build_model
-
-    cfg = load_cfg(opts=SMALL_OPTS)
-    cpu = build_model(cfg, device="cpu", seed=0)
-    gpu = build_model(cfg, device="cuda", seed=0)
-    clip = torch.as_tensor(np.random.default_rng(42).normal(
-        size=(1, 2, 64, 96, 3)).astype(np.float32))
-    with torch.inference_mode():
-        ref = cpu(clip)
-        got = gpu(clip.cuda())
-    worst = {}
-    for key, tol in (("scores", 1e-4), ("boxes", 1e-2), ("keypoints", 1e-2)):
-        valid = ref["valid"]
-        if not torch.equal(got["valid"].cpu(), valid):
-            raise RuntimeError("small parity: valid masks differ")
-        err = (got[key].cpu()[valid] - ref[key][valid]).abs().max().item()
-        if not err <= tol:
-            raise RuntimeError(f"small parity: {key} err {err} > {tol}")
-        worst[key] = err
-    print(f"[parity] R-18 T=2 64x96 f32, card vs CPU path on valid rows: "
-          f"max_abs_err {worst}", flush=True)
-
-
-def phase_train(torch):
-    """Full-width training steps of the main config through the kernels."""
-    from detectandtrack_tpu.core.config import load_cfg
+def _train_steps(torch, tag, cfg, n_steps, seed):
+    """Full-width training steps of `cfg` through the kernels: 1 warm-up,
+    then `n_steps` timed with the launch counters reset. Checked: the
+    model's loss terms, all finite; conv1 launched once and K1's forward
+    and backward once per pooled head per step; a nonzero gradient in
+    every trained part; the frozen stages untouched; at least half the
+    parameters moved → launches."""
     from detectandtrack_tpu_torch.engine.train import (create_train_state,
                                                         make_train_step)
-    from detectandtrack_tpu_torch.kernels import roi_align as ra
-    from detectandtrack_tpu_torch.kernels.conv1 import conv1
     from detectandtrack_tpu_torch.models.detector import build_model
 
-    # With random weights (no pretrained backbone, identity frozen-BN
-    # affines) the unclipped config's own BASE_LR 0.005 blows the losses up
-    # within three steps (seen at a 64x96 bucket in f32); a smaller LR
-    # keeps every loss finite and changes nothing else on the path.
-    cfg = load_cfg(os.path.join(REPO, BOX_CFG),
-                   opts=["SOLVER.BASE_LR", TRAIN_SMOKE_LR])
-    b, t, (h, w) = (cfg.TRAIN.IMS_PER_BATCH, cfg.VIDEO.NUM_FRAMES,
+    b, t, (h, w) = (cfg.TRAIN.IMS_PER_BATCH, _frames(cfg),
                     cfg.TEST.SHAPE_BUCKETS[0])
     model = build_model(cfg, device="cuda", seed=0, train=True)
     state = create_train_state(cfg, model)
     step = make_train_step(model, cfg)
     batch = {k: v.cuda() for k, v in _train_batch(
-        torch, b, t, h, w, cfg.TRAIN.MAX_GT_PER_IM, 5, seed=7).items()}
+        torch, cfg, b, h, w, cfg.TRAIN.MAX_GT_PER_IM, 5, seed).items()}
     state, _ = step(state, batch)                 # warm-up
     torch.cuda.synchronize()
     before = {k: p.detach().clone() for k, p in state.params.items()}
     torch.cuda.reset_peak_memory_stats()
-    conv1.launches = 0
-    ra.roi_align_multilevel.launches = 0
-    ra.roi_align_backward.launches = 0
-    n_steps, secs, losses = 3, [], []
+    _reset_counters()
+    secs, losses = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append({k: float(v) for k, v in metrics.items()})
-    launches = {"conv1": conv1.launches,
-                "roi_align": ra.roi_align_multilevel.launches,
-                "roi_align_backward": ra.roi_align_backward.launches}
+    launches = _read_counters()
     peak = torch.cuda.max_memory_allocated()
-    want = {"conv1": n_steps, "roi_align": 2 * n_steps,
-            "roi_align_backward": 2 * n_steps}
+    heads = _heads(model)
+    want = {"conv1": n_steps, "roi_align": len(heads) * n_steps,
+            "roi_align_backward": len(heads) * n_steps}
     if launches != want:
-        raise RuntimeError(f"train: launch counters {launches}, expected "
+        raise RuntimeError(f"{tag}: launch counters {launches}, expected "
                            f"{want} for {n_steps} steps")
+    head_terms = {"box_head": {"loss_cls", "loss_bbox"},
+                  "kps_head": {"loss_kps"}, "mask_head": {"loss_mask"}}
+    terms = set.union({"loss_rpn_cls", "loss_rpn_bbox", "loss_total"},
+                      *(head_terms[head] for head in heads))
     bad = [k for d in losses for k, v in d.items() if not np.isfinite(v)]
-    if bad or set(losses[0]) != {"loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
-                                 "loss_bbox", "loss_kps", "loss_total"}:
-        raise RuntimeError(f"train: loss terms {losses}")
+    if bad or set(losses[0]) != terms:
+        raise RuntimeError(f"{tag}: loss terms {losses}, expected {terms}")
     grads = {k: p.grad for k, p in state.params.items() if p.grad is not None}
-    for prefix in ("fpn.", "backbone.res3_", "backbone.res4_",
-                   "backbone.res5_", "box_head.", "kps_head.", "rpn_head."):
-        keys = [k for k in grads if k.startswith(prefix)]
-        if not keys or not any(bool(grads[k].any()) for k in keys):
-            raise RuntimeError(f"train: no nonzero gradient under {prefix}")
+    trained = ["rpn_head.", "backbone.res3_", "backbone.res4_"] + [
+        f"{head}." for head in heads] + (
+            ["fpn.", "backbone.res5_"] if cfg.FPN.FPN_ON else [])
+    for prefix in trained:
+        if not any(bool(g.any()) for k, g in grads.items()
+                   if k.startswith(prefix)):
+            raise RuntimeError(f"{tag}: no nonzero gradient under {prefix}")
     frozen = [k for k in state.params
               if k.startswith(("backbone.conv1.", "backbone.res2_"))]
     if any(k in grads for k in frozen) or any(
             not torch.equal(before[k], state.params[k]) for k in frozen):
-        raise RuntimeError("train: the frozen stages took an update")
+        raise RuntimeError(f"{tag}: the frozen stages took an update")
     moved = sum(not torch.equal(before[k], p)
                 for k, p in state.params.items())
     if moved < len(state.params) // 2:
-        raise RuntimeError(f"train: only {moved} parameters moved")
-    print(f"[train] {BOX_CFG} {cfg.MODEL.COMPUTE_DTYPE}, BASE_LR "
-          f"{cfg.SOLVER.BASE_LR}, B={b} {t}x{h}x{w}: "
-          f"{n_steps} steps after 1 warm-up, step s "
+        raise RuntimeError(f"{tag}: only {moved} parameters moved")
+    print(f"[{tag}] {cfg.MODEL.COMPUTE_DTYPE}, BASE_LR {cfg.SOLVER.BASE_LR}, "
+          f"B={b} {t}x{h}x{w}: {n_steps} steps after 1 warm-up, step s "
           f"{[round(v, 4) for v in secs]} (median "
-          f"{sorted(secs)[len(secs) // 2]:.4f}); peak memory "
+          f"{statistics.median(secs):.4f}); peak memory "
           f"{peak / 2 ** 30:.2f} GiB; launches {launches}; {moved}/"
           f"{len(state.params)} parameters moved; losses of the last step "
           f"{ {k: round(v, 4) for k, v in losses[-1].items()} }", flush=True)
-    del model, state, step, grads, before
+    del model, state, step, grads, before, batch
     torch.cuda.empty_cache()
     return launches
 
 
 def phase_train_parity(torch):
-    """One f32 step of the small model on the card (conv1 kernel, K1
+    """One f32 step of each small model on the card (conv1 kernel, K1
     forward and backward kernels) against the port's CPU path, with the
-    same weights, batch and draws."""
+    same weights, batch and draws (PARITY_TRAIN_CASES): the golden R-18 T=2
+    model, and the mask, C4, center-frame keypoint and RPN-only branches
+    on R-18 bodies. Each runs twice: with the conv libraries the paths run
+    (cuDNN on the card, oneDNN on the CPU), and with torch's own convs on
+    both devices, which holds the port's code without the two libraries'
+    different f32 rounding. Losses 1e-4; every gradient GRAD_REL_TOL of
+    its largest entry, or the case's own bound across the libraries."""
     from detectandtrack_tpu.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.train import (create_train_state,
                                                         make_train_step)
     from detectandtrack_tpu_torch.models.detector import build_model
 
-    cfg = load_cfg(opts=TRAIN_OPTS)
-    batch = _train_batch(torch, 2, 2, 64, 96, 10, 3, seed=8)
-    runs = []
-    for dev in ("cpu", "cuda"):
+    def one_step(cfg, batch, dev):
         model = build_model(cfg, device=dev, seed=0, train=True)
         state = create_train_state(cfg, model)
         state, metrics = make_train_step(model, cfg)(
             state, {k: v.to(dev) for k, v in batch.items()})
-        runs.append(({k: float(v) for k, v in metrics.items()},
-                     {k: p.grad.cpu() for k, p in state.params.items()}))
-    (cpu_loss, cpu_grad), (gpu_loss, gpu_grad) = runs
-    loss_err = {k: abs(gpu_loss[k] - v) for k, v in cpu_loss.items()}
-    if set(gpu_loss) != set(cpu_loss) or not all(
-            e <= 1e-4 * max(1.0, abs(cpu_loss[k]))
-            for k, e in loss_err.items()):
-        raise RuntimeError(f"train parity: losses card {gpu_loss} vs CPU "
-                           f"{cpu_loss}")
-    worst = (0.0, "")
-    for k, g in cpu_grad.items():
-        # Relative to the gradient's largest entry, above a floor for the
-        # ones that are zero up to rounding (the heatmap deconv's bias).
-        rel = ((gpu_grad[k] - g).abs().max().item()
-               / max(g.abs().max().item(), GRAD_FLOOR / GRAD_REL_TOL))
-        worst = max(worst, (rel, k))
-    if not worst[0] <= GRAD_REL_TOL:
-        raise RuntimeError(f"train parity: gradient {worst[1]} differs by "
-                           f"{worst[0]:.3g} of its max > {GRAD_REL_TOL}")
-    print(f"[train-parity] R-18 T=2 64x96 f32, one step, card vs CPU path: "
-          f"loss max_abs_err {max(loss_err.values()):.3g} (tol 1e-4); "
-          f"{len(cpu_grad)} gradients, worst {worst[1]} at {worst[0]:.3g} of "
-          f"its max (tol {GRAD_REL_TOL}, floor {GRAD_FLOOR})", flush=True)
+        return ({k: float(v) for k, v in metrics.items()},
+                # No gradient (C4's unused res5) counts as zero.
+                {k: (p.grad if p.grad is not None
+                     else torch.zeros_like(p)).cpu()
+                 for k, p in state.params.items()})
+
+    for label, path, opts, cudnn_tol in PARITY_TRAIN_CASES:
+        cfg = load_cfg(path and os.path.join(REPO, path), opts=opts)
+        batch = _train_batch(torch, cfg, 2, 64, 96, 10, 3, seed=8)
+        for convs, tol in (("cuDNN vs oneDNN", cudnn_tol),
+                           ("torch's convs on both", GRAD_REL_TOL)):
+            libs = convs == "cuDNN vs oneDNN"
+            torch.backends.mkldnn.enabled = torch.backends.cudnn.enabled = libs
+            try:
+                cpu_loss, cpu_grad = one_step(cfg, batch, "cpu")
+                gpu_loss, gpu_grad = one_step(cfg, batch, "cuda")
+            finally:
+                torch.backends.mkldnn.enabled = True
+                torch.backends.cudnn.enabled = True
+            loss_err = {k: abs(gpu_loss[k] - v) for k, v in cpu_loss.items()}
+            if set(gpu_loss) != set(cpu_loss) or not all(
+                    e <= 1e-4 * max(1.0, abs(cpu_loss[k]))
+                    for k, e in loss_err.items()):
+                raise RuntimeError(f"train parity {label} {convs}: losses "
+                                   f"card {gpu_loss} vs CPU {cpu_loss}")
+            worst = (0.0, "")
+            for k, g in cpu_grad.items():
+                # Relative to the gradient's largest entry, above a floor
+                # for the ones that are zero up to rounding (the heatmap
+                # deconv's bias).
+                rel = ((gpu_grad[k] - g).abs().max().item()
+                       / max(g.abs().max().item(), GRAD_FLOOR / GRAD_REL_TOL))
+                worst = max(worst, (rel, k))
+            if not worst[0] <= tol:
+                raise RuntimeError(f"train parity {label} {convs}: gradient "
+                                   f"{worst[1]} differs by {worst[0]:.3g} of "
+                                   f"its max > {tol}")
+            print(f"[train-parity] {label} 64x96 f32, one step, card vs "
+                  f"CPU path ({convs}): losses {sorted(cpu_loss)} "
+                  f"max_abs_err {max(loss_err.values()):.3g} (tol 1e-4); "
+                  f"{len(cpu_grad)} gradients, worst {worst[1]} at "
+                  f"{worst[0]:.3g} of its max (tol {tol}, floor "
+                  f"{GRAD_FLOOR})", flush=True)
+
+
+def _kernel_vs_plain(torch, tag, name, dtype, kern, plain):
+    """Hold one kernel call against its plain version and time both →
+    (max_abs_err, ms, plain_ms). A kernel returning a list is the
+    backward's per-level maps."""
+    got, ref = kern(), plain()
+    if not isinstance(got, list):
+        got, ref = [got], [ref]
+    errs = [_check(f"{name} level {i}", g, r, dtype, torch)
+            for i, (g, r) in enumerate(zip(got, ref))]
+    err, tol = max(e for e, _ in errs), min(t for _, t in errs)
+    del got, ref
+    ms = _time_ms(torch, kern)
+    plain_ms = _time_ms(torch, plain, iters=3, warmup=1)
+    print(f"[{tag}] {name}: max_abs_err={err:.3g} (tol {tol:.3g}) kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    return err, ms, plain_ms
+
+
+def phase_surface_kernels(torch):
+    """The kernels against their plain versions at the shapes the
+    surface's paths give them, on 800x1344 clips, f32 and bf16: conv1 at
+    t=1; K1 on C4's one res4 level at inference (B=2 requests, the RPN's
+    post-NMS count) and in training (IMS_PER_BATCH images, the Fast R-CNN
+    sample count), with the backward at that training shape; K1 at the
+    mask stage (the final detections on the FPN levels)."""
+    from bench import make_realistic_tubes
+    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.kernels import roi_align as ra
+    from detectandtrack_tpu_torch.kernels.conv1 import conv1, conv1_reference
+    from detectandtrack_tpu_torch.models.detector import build_model
+    c4 = load_cfg(os.path.join(REPO, C4_CFG))
+    mk = load_cfg(os.path.join(REPO, MASK_CFG))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, (h, w) = 2, c4.TEST.SHAPE_BUCKETS[0]
+    stride = c4.RPN.STRIDE
+    c4_dim = build_model(c4, device="meta").roi_dim          # res4's width
+    p_box = c4.FAST_RCNN.ROI_XFORM_RESOLUTION
+    s_tr = c4.TRAIN.IMS_PER_BATCH * _frames(c4)
+    k_inf, k_tr = c4.RPN.POST_NMS_TOP_N_TEST, c4.FAST_RCNN.BATCH_SIZE_PER_IM
+
+    def rois_of(s, k, seed):
+        rois = torch.as_tensor(make_realistic_tubes(s, k, 1, h, w,
+                                                    seed=seed)).clone()
+        rois[:, :len(SPECIAL_ROIS)] = torch.tensor(SPECIAL_ROIS)
+        return rois.cuda().contiguous()
+
+    x = torch.randn((b, 1, h, w, 3), device="cuda", generator=gen)
+    k7 = torch.randn((1, 7, 7, 3, 64), device="cuda", generator=gen) * (
+        2.0 / (49 * 64)) ** 0.5
+    c4_map = torch.randn((max(b, s_tr), h // stride, w // stride, c4_dim),
+                         device="cuda", generator=gen)
+    inf_rois, tr_rois = rois_of(b, k_inf, 9), rois_of(s_tr, k_tr, 11)
+    inf_levels = torch.zeros((b, k_inf), dtype=torch.int32, device="cuda")
+    tr_levels = torch.zeros((s_tr, k_tr), dtype=torch.int32, device="cuda")
+    strides = [4, 8, 16, 32]
+    fpn = [torch.randn((b, h // s, w // s, mk.FPN.DIM), device="cuda",
+                       generator=gen) for s in strides]
+    k_mask, p_mask = mk.TEST.DETECTIONS_PER_IM, mk.MRCNN.ROI_XFORM_RESOLUTION
+    m_rois = rois_of(b, k_mask, 10)
+    m_levels = ra.assign_fpn_levels(m_rois, 2, 5)
+    bwd_shapes = [(s_tr,) + tuple(c4_map.shape[1:])]
+    bwd_slabs = ra.slab_of_rows(s_tr, k_tr, "cuda")
+    c4_tag = f"{h // stride}x{w // stride}x{c4_dim}"
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        inf_map = [c4_map[:b].to(dtype)]
+        tr_map = [c4_map[:s_tr].to(dtype)]
+        mp = [m.to(dtype) for m in fpn]
+        grad = torch.randn((s_tr * k_tr, p_box, p_box, c4_dim), device="cuda",
+                           generator=gen).to(dtype)
+        cases = [
+            (f"conv1 (2, 1, {h}, {w}, 3) t=1 {dt}",
+             lambda: conv1(x, k7, 1, dtype),
+             lambda: conv1_reference(x, k7, 1, dtype)),
+            (f"roi_align C4 inference S={b} {c4_tag} K={k_inf} P={p_box} "
+             f"{dt}",
+             lambda: ra.roi_align_multilevel(inf_map, [stride], inf_rois,
+                                             inf_levels, p_box, 2),
+             lambda: ra.roi_align_multilevel_reference(
+                 inf_map, [stride], inf_rois, inf_levels, p_box, 2)),
+            (f"roi_align C4 training box stage S={s_tr} {c4_tag} K={k_tr} "
+             f"P={p_box} {dt}",
+             lambda: ra.roi_align_multilevel(tr_map, [stride], tr_rois,
+                                             tr_levels, p_box, 2),
+             lambda: ra.roi_align_multilevel_reference(
+                 tr_map, [stride], tr_rois, tr_levels, p_box, 2)),
+            (f"roi_align mask stage S={b} K={k_mask} P={p_mask} {dt}",
+             lambda: ra.roi_align_multilevel(mp, strides, m_rois, m_levels,
+                                             p_mask, 2),
+             lambda: ra.roi_align_multilevel_reference(
+                 mp, strides, m_rois, m_levels, p_mask, 2)),
+            (f"roi_align_backward C4 training box stage S={s_tr} {c4_tag} "
+             f"K={k_tr} P={p_box} {dt}",
+             lambda: ra.roi_align_backward(
+                 bwd_shapes, dtype, [stride], tr_rois.reshape(-1, 4),
+                 bwd_slabs, tr_levels.reshape(-1), grad, p_box, 2),
+             lambda: ra.roi_align_backward_reference(
+                 bwd_shapes, dtype, [stride], tr_rois.reshape(-1, 4),
+                 bwd_slabs, tr_levels.reshape(-1), grad, p_box, 2)),
+        ]
+        for name, kern, plain in cases:
+            _kernel_vs_plain(torch, "surface-kernels", name, dtype, kern,
+                             plain)
+        del inf_map, tr_map, mp, grad
+        torch.cuda.empty_cache()
+
+
+def phase_surface(torch):
+    """Every new path at full width, bf16, seeded weights: 1 warm-up and 2
+    requests of B=2 clips through each inference path, 1 warm-up and 2
+    steps of each training path → the launches summed over the paths."""
+    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.inference import make_detect_fn
+    from detectandtrack_tpu_torch.models.detector import build_model
+
+    total = {"conv1": 0, "roi_align": 0, "roi_align_backward": 0}
+    b, n_req = 2, 2
+    for path, tta in SURFACE_CFGS:
+        cfg = load_cfg(os.path.join(REPO, path))
+        name = os.path.basename(path)[:-5] + (" detect_tta" if tta else "")
+        t, (h, w) = _frames(cfg), cfg.TEST.SHAPE_BUCKETS[0]
+        model = build_model(cfg, device="cuda", seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        clips = [(torch.randn((b, t, h, w, 3), device="cuda", generator=gen),)
+                 for _ in range(n_req + 1)]
+        _, launches = _serve(torch, f"surface {name}", model,
+                             make_detect_fn(model, flip_tta=tta), clips[0],
+                             clips[1:], passes=2 if tta else 1)
+        for k, v in launches.items():
+            total[k] += v
+        del model, clips
+        torch.cuda.empty_cache()
+    for path in SURFACE_TRAIN_CFGS:
+        cfg = load_cfg(os.path.join(REPO, path),
+                       opts=["SOLVER.BASE_LR", TRAIN_SMOKE_LR])
+        launches = _train_steps(
+            torch, f"surface train {os.path.basename(path)[:-5]}", cfg, 2,
+            seed=10)
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def _kps_held(torch, heatmaps, hm_err, ref_boxes, got_boxes, t, tol):
+    """Which keypoints (B, D, T, K) a heatmap error of at most `hm_err` and
+    the decode box's own difference cannot move by more than `tol`, and the
+    top-two gap of each one's heatmap. A keypoint is held where its peak
+    leads the runner-up bin by more than 2·hm_err (no argmax swap) and, on
+    each axis, the decode box's difference plus the bound on the parabola
+    refinement's change, 3·hm_err / (|curvature| - 4·hm_err) bins, is
+    within `tol`. Rows past the keypoint budget are padding and held."""
+    b, m, tk, s, _, k = heatmaps.shape
+    d = ref_boxes.shape[1]
+    hm = heatmaps.permute(0, 1, 2, 5, 3, 4).reshape(b, m, tk, k, s * s)
+    top = hm.topk(2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    idx = hm.argmax(-1)
+    py, px = idx // s, idx % s
+
+    def at(dy, dx):
+        cell = (py + dy).clamp(0, s - 1) * s + (px + dx).clamp(0, s - 1)
+        return hm.gather(-1, cell[..., None])[..., 0]
+
+    peak = at(0, 0)
+    frames = slice(t // 2, t // 2 + 1) if tk != t else slice(None)
+    box = ref_boxes.reshape(b, d, t, 4)[:, :m, frames]       # (B, M, Tk, 4)
+    box_diff = (got_boxes - ref_boxes).abs().reshape(b, d, t, 4)[
+        :, :m, frames].amax(-1)[..., None]
+    held = gap > 2 * hm_err
+    for curv, side in ((at(0, -1) - 2 * peak + at(0, 1),
+                        box[..., 2] - box[..., 0]),
+                       (at(-1, 0) - 2 * peak + at(1, 0),
+                        box[..., 3] - box[..., 1])):
+        room = curv.abs() - 4 * hm_err
+        move = 3 * hm_err / room.clamp(min=1e-6) * (
+            side.clamp(min=1.0)[..., None] / s)
+        held &= (room > 1e-6) & (box_diff + move <= tol)
+    held, gap = held.expand(b, m, t, k), gap.expand(b, m, t, k)
+    pad = (0, 0, 0, 0, 0, d - m)
+    return (torch.nn.functional.pad(held, pad, value=True),
+            torch.nn.functional.pad(gap, pad, value=float("inf")))
+
+
+def phase_parity(torch):
+    """Each small f32 model on the card against the port's CPU path on the
+    same weights and clip (PARITY_CASES): the golden R-18 T=2 model and
+    every new branch. Held: the valid masks equal; on valid rows scores
+    1e-4, boxes 1e-2, mask probabilities 1e-4; keypoint heatmaps 1e-4 of
+    their largest entry; the keypoint decode of the CPU's heatmaps on both
+    devices 1e-2 (with flip TTA, the KPS_AUG pair's heatmaps and decode
+    too); the keypoints end to end 1e-2, on the golden model
+    everywhere, elsewhere where the measured heatmap error cannot move them
+    (`_kps_held`: random heatmaps are nearly flat, so a rounding difference
+    can swap an argmax); the excused ones are reported."""
+    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.inference import (detect_outputs,
+                                                            make_kps_aug_fns)
+    from detectandtrack_tpu_torch.models.detector import build_model
+
+    kp_tol = 1e-2
+    for i, (label, path, opts, tta, hold_all) in enumerate(PARITY_CASES):
+        cfg = load_cfg(path and os.path.join(REPO, path), opts=opts)
+        clip = torch.as_tensor(np.random.default_rng(42 + i).normal(
+            size=(1, _frames(cfg), 64, 96, 3)).astype(np.float32))
+        models, raws = {}, []
+        for dev in ("cpu", "cuda"):
+            model = models[dev] = build_model(cfg, device=dev, seed=0)
+            with torch.inference_mode():
+                raw = (model.detect_tta if tta else model)(clip.to(dev))
+            raws.append({k: v.cpu() for k, v in raw.items()
+                         if torch.is_tensor(v)})
+        raw_ref, raw_got = raws
+        ref, got = detect_outputs(raw_ref), detect_outputs(raw_got)
+        valid = ref["valid"]
+        if not torch.equal(got["valid"], valid) or not valid.any():
+            raise RuntimeError(f"parity {label}: valid masks differ or are "
+                               "empty")
+        errs = {}
+
+        def held(key, err, tol):
+            if not err <= tol:
+                raise RuntimeError(f"parity {label}: {key} err {err} > {tol}")
+            errs[key] = err
+
+        for key, tol in (("scores", 1e-4), ("boxes", 1e-2), ("masks", 1e-4)):
+            if key in ref:
+                held(key, (got[key][valid] - ref[key][valid]).abs().max()
+                     .item(), tol)
+        note = ""
+        if "heatmaps" in raw_ref:
+            hm = raw_ref["heatmaps"]
+            hm_err = (raw_got["heatmaps"] - hm).abs().max().item()
+            held("heatmaps (of max)", hm_err / hm.abs().max().item(), 1e-4)
+            with torch.inference_mode():
+                dec = [models[dev].decode_keypoints_from_heatmaps(
+                    hm.to(dev), raw_ref["boxes"].to(dev)).cpu()
+                       for dev in ("cpu", "cuda")]
+            held("decode", (dec[1][valid] - dec[0][valid]).abs().max()
+                 .item(), kp_tol)
+            kp_err = (got["keypoints"] - ref["keypoints"]).abs().amax(-1)
+            rows = valid[:, :, None, None].expand_as(kp_err)
+            hold, gap = _kps_held(torch, hm, hm_err, raw_ref["boxes"],
+                                  raw_got["boxes"], model.num_frames, kp_tol)
+            hold = rows if hold_all else rows & hold
+            if hold.any():
+                held("keypoints end to end", kp_err[hold].max().item(),
+                     kp_tol)
+            excused = rows & ~hold
+            if tta:
+                # The KPS_AUG pair at the CPU's boxes: one scale with its
+                # mirrored pass, then two stacked scales averaged and
+                # decoded on the device.
+                fns = {dev: make_kps_aug_fns(models[dev], flip=True)
+                       for dev in ("cpu", "cuda")}
+                with torch.inference_mode():
+                    aug = [fns[dev][0](clip.to(dev), raw_ref["boxes"].to(
+                        dev)).cpu() for dev in ("cpu", "cuda")]
+                    stack = torch.stack([aug[0], hm])
+                    dec = [fns[dev][1](stack.to(dev), raw_ref["boxes"].to(
+                        dev)).cpu() for dev in ("cpu", "cuda")]
+                held("kps_aug heatmaps (of max)", (aug[1] - aug[0]).abs()
+                     .max().item() / aug[0].abs().max().item(), 1e-4)
+                held("kps_aug decode", (dec[1][valid] - dec[0][valid]).abs()
+                     .max().item(), kp_tol)
+            note = (f"; keypoints held {int(hold.sum())}/{int(rows.sum())}"
+                    f", excused {int(excused.sum())}")
+            if excused.any():
+                j = torch.where(excused, kp_err, -1.0).argmax()
+                note += (f" (worst excused moved {kp_err.flatten()[j]:.4g} "
+                         f"px at a top-two gap {gap.flatten()[j]:.3g}, "
+                         f"heatmap err {hm_err:.3g})")
+        print(f"[parity] {label} 64x96 f32, card vs CPU path on valid rows: "
+              f"max_abs_err {errs}{note}", flush=True)
 
 
 def main() -> int:
@@ -602,6 +976,7 @@ def main() -> int:
     os.chdir(REPO)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from detectandtrack_tpu.core.config import load_cfg
     from detectandtrack_tpu_torch.kernels import _build
 
     card = _card_line()
@@ -627,12 +1002,22 @@ def main() -> int:
     phase_backward(torch, results)
     torch.cuda.empty_cache()
     inference = phase_slice(torch)
-    phase_small_parity(torch)
-    torch.cuda.empty_cache()
-    launches = phase_train(torch)
+    # With random weights (no pretrained backbone, identity frozen-BN
+    # affines) the unclipped config's own BASE_LR 0.005 blows the losses up
+    # within three steps; TRAIN_SMOKE_LR keeps every loss finite and
+    # changes nothing else on the path.
+    training = _train_steps(torch, "train", load_cfg(
+        os.path.join(REPO, BOX_CFG), opts=["SOLVER.BASE_LR", TRAIN_SMOKE_LR]),
+        3, seed=7)
+    phase_surface_kernels(torch)
+    surface = phase_surface(torch)
+    phase_parity(torch)
     phase_train_parity(torch)
+    launches = {k: inference[k] + training[k] + surface[k]
+                for k in training}
     print(f"[launches] inference slice {inference}; training slice "
-          f"{launches}; k3 path {results['roi_align_k3']['launches']}",
+          f"{training}; surface paths {surface}; k3 path "
+          f"{results['roi_align_k3']['launches']}; sum {launches}",
           flush=True)
 
     ra = "detectandtrack_tpu/kernels/roi_align.py"

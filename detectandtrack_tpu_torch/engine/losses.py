@@ -1,6 +1,6 @@
 """Detection losses (port of detectandtrack_tpu/engine/losses.py):
-smooth-L1, softmax and sigmoid cross-entropy, the RPN and Fast R-CNN losses
-and the keypoint heatmap loss. Every loss is computed in f32."""
+smooth-L1, softmax and sigmoid cross-entropy, the RPN and Fast R-CNN losses,
+the mask loss and the keypoint heatmap loss. Every loss is computed in f32."""
 
 from __future__ import annotations
 
@@ -69,6 +69,20 @@ def fast_rcnn_losses(cls_logits: torch.Tensor, box_deltas: torch.Tensor,
     box = smooth_l1(picked, bbox_targets, beta).sum(-1)
     box_loss = (box * bbox_weights).sum() / _normalizer(w)
     return cls_loss, box_loss
+
+
+def mask_loss(mask_logits: torch.Tensor, mask_targets: torch.Tensor,
+              weights: torch.Tensor, loss_weight: float = 1.0
+              ) -> torch.Tensor:
+    """Per-pixel sigmoid CE of person-class logits (S, M, M) against binary
+    targets (S, M, M), averaged over the pixels of the weighted rows
+    (weights (S,): fg and annotated)."""
+    logits = mask_logits.float()
+    ce = (logits.clamp(min=0) - logits * mask_targets.float()
+          + torch.log1p(torch.exp(-logits.abs())))
+    w = weights.float()[:, None, None]
+    denom = (w.sum() * logits.shape[1] * logits.shape[2]).clamp(min=1.0)
+    return loss_weight * (ce * w).sum() / denom
 
 
 def keypoint_loss(heatmap_logits: torch.Tensor, bin_targets: torch.Tensor,

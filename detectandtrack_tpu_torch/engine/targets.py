@@ -1,7 +1,7 @@
 """Training targets with fixed sample counts (port of
 detectandtrack_tpu/engine/targets.py): anchor labels and tube regression
-targets, RoI sampling with box and keypoint targets, keypoint heatmap
-labels.
+targets, RoI sampling with box and keypoint targets, mask targets, keypoint
+heatmap labels.
 
 The random draws enter as tensors: each sampler takes the uniforms it ranks
 by (`u_fg`, `u_bg`, one per candidate). A caller passes the draws of a
@@ -147,6 +147,43 @@ def proposal_targets(proposals: torch.Tensor, prop_valid: torch.Tensor,
                            bbox_weights=is_fg.float(),
                            keypoint_targets=gt_keypoints[m], is_fg=is_fg,
                            valid=sel_valid, gt_inds=m)
+
+
+def mask_targets(rois: torch.Tensor, gt_boxes: torch.Tensor,
+                 gt_bitmaps: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Per-frame roi boxes (S, 4), their matched GT boxes (S, 4) and GT
+    bitmaps (S, M, M) drawn in the GT box → binary targets (S, P, P) in the
+    roi's frame: each roi pixel centre is sampled bilinearly from the
+    bitmap (zero outside it) and thresholded at 0.5."""
+    s = rois.shape[0]
+    m = gt_bitmaps.shape[-1]
+    p = out_size
+    rois = rois.float()
+    gt_boxes = gt_boxes.float()
+    # Times 1/p, as XLA compiles the JAX package's `/ p`: for a roi equal to
+    # its GT box some samples fall exactly half-way between bitmap pixels,
+    # where the last ulp decides the 0.5 threshold.
+    f = ((torch.arange(p, dtype=torch.float32, device=rois.device) + 0.5)
+         * (1.0 / p))
+    rx = rois[:, 0:1] + f[None, :] * (rois[:, 2:3] - rois[:, 0:1])   # (S, P)
+    ry = rois[:, 1:2] + f[None, :] * (rois[:, 3:4] - rois[:, 1:2])
+    gw = (gt_boxes[:, 2:3] - gt_boxes[:, 0:1]).clamp(min=1.0)
+    gh = (gt_boxes[:, 3:4] - gt_boxes[:, 1:2]).clamp(min=1.0)
+    u = ((rx - gt_boxes[:, 0:1]) / gw * m - 0.5)[:, None, :].expand(s, p, p)
+    v = ((ry - gt_boxes[:, 1:2]) / gh * m - 0.5)[:, :, None].expand(s, p, p)
+    u0, v0 = torch.floor(u), torch.floor(v)
+    du, dv = u - u0, v - v0
+    flat = gt_bitmaps.float().reshape(s, m * m)
+
+    def tap(vi, ui, w):
+        inb = (ui >= 0) & (ui < m) & (vi >= 0) & (vi < m)
+        idx = vi.clamp(0, m - 1).long() * m + ui.clamp(0, m - 1).long()
+        val = torch.gather(flat, 1, idx.reshape(s, -1)).reshape(s, p, p)
+        return torch.where(inb, val, torch.zeros_like(val)) * w
+
+    out = (tap(v0, u0, (1 - du) * (1 - dv)) + tap(v0, u0 + 1, du * (1 - dv))
+           + tap(v0 + 1, u0, (1 - du) * dv) + tap(v0 + 1, u0 + 1, du * dv))
+    return (out >= 0.5).float()
 
 
 def keypoint_heatmap_targets(rois: torch.Tensor, keypoints: torch.Tensor,

@@ -9,10 +9,15 @@ the frozen stages), in place on the model's parameters. After a step each
 parameter's `.grad` holds that step's gradient.
 
 Batch contract (padded, fixed shapes, tensors on the model's device):
-  clips         (B, T, H, W, 3) float32
-  gt_boxes      (B, G, 4·T)
-  gt_keypoints  (B, G, T, K, 3)
-  gt_valid      (B, G) bool
+  clips          (B, T, H, W, 3) float32
+  gt_boxes       (B, G, 4·T)
+  gt_keypoints   (B, G, T, K, 3)
+  gt_valid       (B, G) bool
+  gt_masks       (B, G, T, M, M) optional, MODEL.MASK_ON: GT bitmaps drawn
+                 in each GT box
+  gt_mask_valid  (B, G, T) bool, with gt_masks: which frames are annotated
+A MASK_ON batch without gt_masks trains every other loss and reports no
+loss_mask.
 
 Random sampling enters as draws (see engine/targets.py): a `Draws`
 callable gives, for a sampling stage ("rpn" or "proposals") and its
@@ -60,16 +65,13 @@ def generator_draws(seed: int, step: int) -> Draws:
     return draw
 
 
-def _anchor_field_all_levels(cfg, maps) -> np.ndarray:
+def _anchor_field_all_levels(cfg, maps, strides) -> np.ndarray:
     """Concatenated anchor field across the RPN levels' (B, T, H, W, C)
-    maps, in the order of the concatenated RPN outputs."""
-    fields = []
-    for li, (lvl, fmap) in enumerate(zip(
-            range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1), maps)):
-        stride = 2 ** lvl
-        fields.append(shifted_anchor_field(
-            anchor_cell_for_level(cfg, li, stride), stride, fmap.shape[2],
-            fmap.shape[3]))
+    maps (C4: the one res4 map with every RPN.SIZES anchor), in the order of
+    the concatenated RPN outputs."""
+    fields = [shifted_anchor_field(anchor_cell_for_level(cfg, li, stride),
+                                   stride, fmap.shape[2], fmap.shape[3])
+              for li, (fmap, stride) in enumerate(zip(maps, strides))]
     return np.concatenate(fields, axis=0)
 
 
@@ -80,9 +82,12 @@ def _stack(rows):
 
 def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
                   gt_boxes: torch.Tensor, gt_keypoints: torch.Tensor,
-                  gt_valid: torch.Tensor, draws: Draws
+                  gt_valid: torch.Tensor, draws: Draws,
+                  gt_masks: Optional[torch.Tensor] = None,
+                  gt_mask_valid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full training forward → (total loss, loss terms), with graphs."""
+    """Full training forward → (total loss, loss terms), with graphs.
+    RPN_ONLY trains the RPN losses alone."""
     cfg = model.cfg
     t = model.num_frames
     b = clips.shape[0]
@@ -94,10 +99,9 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
                                                  train=True)
 
     # ---- RPN losses over the concatenated anchor field ----
-    maps = [pyramid[f"p{l}"] for l in range(cfg.FPN.RPN_MIN_LEVEL,
-                                            cfg.FPN.RPN_MAX_LEVEL + 1)]
-    anchors = torch.as_tensor(_anchor_field_all_levels(cfg, maps),
-                              device=dev)
+    anchors = torch.as_tensor(
+        _anchor_field_all_levels(cfg, *model._pyramid_list(pyramid)),
+        device=dev)
     flat = [flatten_rpn_outputs(lg, dl, t) for lg, dl in rpn_raw]
     logits_all = torch.cat([f[0] for f in flat], dim=1)
     deltas_all = torch.cat([f[1] for f in flat], dim=1)
@@ -114,6 +118,10 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
                                       cfg.RPN.SMOOTH_L1_BETA))
     rpn_cls = torch.stack([c for c, _ in rpn_terms]).mean()
     rpn_box = torch.stack([bx for _, bx in rpn_terms]).mean()
+    if cfg.MODEL.RPN_ONLY:
+        total = rpn_cls + rpn_box
+        return total, {"loss_rpn_cls": rpn_cls, "loss_rpn_bbox": rpn_box,
+                       "loss_total": total}
 
     # ---- Proposal sampling + box head ----
     u_fg, u_bg = draws("proposals", b, tubes.shape[1] + gt_boxes.shape[1])
@@ -143,22 +151,53 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
     if cfg.MODEL.KEYPOINTS_ON:
         kp = min(cfg.KRCNN.TRAIN_MAX_ROIS_PER_IM or s, s)
         kp_rois = ptgt.rois[:, :kp]                       # (B, KP, 4·T)
+        kp_gt = ptgt.keypoint_targets[:, :kp]             # (B, KP, T, K, 3)
         kp_pooled = model.roi_transform(pyramid, kp_rois,
                                         cfg.KRCNN.ROI_XFORM_RESOLUTION,
                                         cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO)
-        hm_logits = model.kps_head(kp_pooled)             # (B·KP, T, S, S, K)
+        t_kp = t
+        if cfg.VIDEO.VIDEO_ON and not cfg.VIDEO.PREDICT_ALL_FRAMES:
+            # Center-frame supervision: the head trains on each tube's
+            # center frame.
+            c = t // 2
+            kp_pooled = kp_pooled[:, c:c + 1]
+            kp_rois = kp_rois.reshape(b, kp, t, 4)[:, :, c]
+            kp_gt = kp_gt[:, :, c:c + 1]
+            t_kp = 1
+        hm_logits = model.kps_head(kp_pooled)           # (B·KP, Tk, S, S, K)
         hs = hm_logits.shape[2]
         n_kp = cfg.KRCNN.NUM_KEYPOINTS
         bins, w = T.keypoint_heatmap_targets(
-            kp_rois.reshape(-1, 4),
-            ptgt.keypoint_targets[:, :kp].reshape(-1, n_kp, 3), hs)
-        fg = ptgt.is_fg[:, :kp].reshape(-1).float().repeat_interleave(t)
+            kp_rois.reshape(-1, 4), kp_gt.reshape(-1, n_kp, 3), hs)
+        fg = ptgt.is_fg[:, :kp].reshape(-1).float().repeat_interleave(t_kp)
         kp_loss = L.keypoint_loss(hm_logits.reshape(-1, hs, hs, n_kp), bins,
                                   w * fg[:, None],
                                   cfg.KRCNN.NORMALIZE_BY_VISIBLE_KEYPOINTS,
                                   cfg.KRCNN.LOSS_WEIGHT)
         total = total + kp_loss
         metrics["loss_kps"] = kp_loss
+
+    # ---- Mask head: per-pixel sigmoid CE of the person channel ----
+    if cfg.MODEL.MASK_ON and gt_masks is not None:
+        mb = min(cfg.MRCNN.TRAIN_MAX_ROIS_PER_IM or s, s)
+        m_rois = ptgt.rois[:, :mb]                        # (B, MB, 4·T)
+        gi = ptgt.gt_inds[:, :mb]                         # (B, MB)
+        rows = torch.arange(b, device=dev)[:, None]
+        mk_boxes = gt_boxes[rows, gi]                     # (B, MB, 4·T)
+        mk_masks = gt_masks[rows, gi]                     # (B, MB, T, M, M)
+        mk_valid = gt_mask_valid[rows, gi]                # (B, MB, T)
+        m_logits = model.mask_head(model.roi_transform(
+            pyramid, m_rois, cfg.MRCNN.ROI_XFORM_RESOLUTION,
+            cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO))          # (B·MB, T, P, P, C)
+        pm = m_logits.shape[2]
+        mg = mk_masks.shape[-1]
+        tgt = T.mask_targets(m_rois.reshape(-1, 4), mk_boxes.reshape(-1, 4),
+                             mk_masks.reshape(-1, mg, mg), pm)
+        w_mask = (ptgt.is_fg[:, :mb, None] & mk_valid.bool()).reshape(-1)
+        m_loss = L.mask_loss(m_logits[..., 1].reshape(-1, pm, pm), tgt,
+                             w_mask.float(), cfg.MRCNN.WEIGHT_LOSS_MASK)
+        total = total + m_loss
+        metrics["loss_mask"] = m_loss
 
     metrics["loss_total"] = total
     return total, metrics
@@ -252,7 +291,8 @@ def make_train_step(model: GeneralizedRCNN, cfg):
             p.grad = None
         total, metrics = train_forward(
             model, batch["clips"], batch["gt_boxes"], batch["gt_keypoints"],
-            batch["gt_valid"], draws)
+            batch["gt_valid"], draws, batch.get("gt_masks"),
+            batch.get("gt_mask_valid"))
         total.backward()
         opt.update(state)
         state = TrainState(state.params, state.momentum, state.step + 1)

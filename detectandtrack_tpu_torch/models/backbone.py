@@ -219,13 +219,15 @@ class ResNet(nn.Module):
     """ResNet body → {res2..res5}, each (B, T, H/s, W/s, C).
 
     `time_kernels` gives the temporal kernel of (conv1, res2..res5).
+    `res5_dilation` 2 gives res5 stride 1 and dilation-2 3x3s, so res5 stays
+    at stride 16 (RESNETS.RES5_DILATION).
     """
 
     def __init__(self, depth: str = "resnet50",
                  time_kernels: Sequence[int] = (1, 1, 1, 1, 1),
                  num_groups: int = 1, width_per_group: int = 64,
                  stride_1x1: bool = True, dtype: torch.dtype = torch.float32,
-                 dilate_time: bool = False):
+                 res5_dilation: int = 1, dilate_time: bool = False):
         super().__init__()
         blocks = STAGE_BLOCKS[depth]
         basic = depth in BASIC_ARCHS
@@ -240,28 +242,32 @@ class ResNet(nn.Module):
             out = 64 * expansion * 2 ** stage
             tk = time_kernels[stage + 1]
             is_res5 = stage == len(blocks) - 1
+            sdil = res5_dilation if is_res5 else 1
             tdil = 2 if (is_res5 and dilate_time and tk > 1) else 1
-            stride = 1 if stage == 0 else 2
+            stride = 1 if stage == 0 or sdil > 1 else 2
             names = []
             for bi in range(n_blocks):
                 name = f"res{stage + 2}_{bi}"
                 self.add_module(name, block_cls(
                     cin, inner, out, spatial_stride=stride if bi == 0 else 1,
                     time_kernel=tk, stride_1x1=stride_1x1, dtype=dtype,
-                    time_dilation=tdil,
+                    spatial_dilation=sdil, time_dilation=tdil,
                     groups=1 if basic else num_groups))
                 names.append(name)
                 cin = out
             self.stage_names.append(names)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, last_stage: int = 5
+                ) -> Dict[str, torch.Tensor]:
+        """clips → {res2..res<last_stage>}; the later stages keep their
+        parameters but do not run (C4 reads res4 only)."""
         y = F.relu(self.conv1(x))
         b, t, h, w, c = y.shape
         y = F.max_pool2d(y.reshape(b * t, h, w, c).permute(0, 3, 1, 2),
                          3, 2, 1)
         y = y.permute(0, 2, 3, 1).reshape(b, t, y.shape[2], y.shape[3], c)
         feats = {}
-        for stage, names in enumerate(self.stage_names):
+        for stage, names in enumerate(self.stage_names[:last_stage - 1]):
             for name in names:
                 y = getattr(self, name)(y)
             feats[f"res{stage + 2}"] = y
@@ -275,5 +281,6 @@ def backbone_from_cfg(cfg) -> ResNet:
                   num_groups=cfg.RESNETS.NUM_GROUPS,
                   width_per_group=cfg.RESNETS.WIDTH_PER_GROUP,
                   stride_1x1=cfg.RESNETS.STRIDE_1X1, dtype=compute_dtype(cfg),
+                  res5_dilation=cfg.RESNETS.RES5_DILATION,
                   dilate_time=(cfg.VIDEO.DILATE_TIME if cfg.VIDEO.VIDEO_ON
                                else False))

@@ -1,6 +1,7 @@
 """Feature Pyramid Network on (B, T, H, W, C) activations (port of
 detectandtrack_tpu/models/fpn.py): 1x1 laterals, nearest ×2 top-down, 3x3
-posthoc convs, and P6 as a stride-2 subsample of P5."""
+posthoc convs, and P6 as a stride-2 subsample of P5 or, with
+FPN.EXTRA_CONV_LEVELS, a stride-2 3x3 conv on P5."""
 
 from __future__ import annotations
 
@@ -26,8 +27,11 @@ class FPN(nn.Module):
 
     def __init__(self, in_dims: Dict[str, int], dim: int = 256,
                  zero_init_lateral: bool = False,
+                 extra_conv_levels: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.extra_p6 = (Conv3d(dim, dim, (1, 3, 3), (1, 2, 2), use_bias=True,
+                                dtype=dtype) if extra_conv_levels else None)
         for n in _STAGES:
             self.add_module(f"lateral_{n}", Conv3d(
                 in_dims[n], dim, (1, 1, 1), use_bias=True, dtype=dtype,
@@ -46,5 +50,6 @@ class FPN(nn.Module):
             outs[f"p{i + 2}"] = td
         for lvl in ("p2", "p3", "p4", "p5"):
             outs[lvl] = getattr(self, f"posthoc_{lvl}")(outs[lvl])
-        outs["p6"] = outs["p5"][:, :, ::2, ::2]
+        outs["p6"] = (self.extra_p6(outs["p5"]) if self.extra_p6 is not None
+                      else outs["p5"][:, :, ::2, ::2])
         return outs

@@ -1,6 +1,7 @@
 """Tube-RPN head and fixed-budget proposal helpers (port of
 detectandtrack_tpu/models/rpn.py). Anchors come from the JAX package's
-numpy module `detectandtrack_tpu.ops.anchors`, reused by import."""
+numpy module `detectandtrack_tpu.ops.anchors`, reused by import (it imports
+no JAX)."""
 
 from __future__ import annotations
 
@@ -23,12 +24,14 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class RPNHead(nn.Module):
     """Shared 3x3 trunk on time-mean-pooled features + objectness / 4T tube
-    delta predictors; weights shared across FPN levels."""
+    delta predictors; weights shared across FPN levels. `in_dim` is the
+    feature width, `dim` the trunk's (FPN: both FPN.DIM; C4: res4's width
+    into a 1024-wide trunk)."""
 
-    def __init__(self, dim: int = 256, num_anchors: int = 3,
+    def __init__(self, in_dim: int, dim: int = 256, num_anchors: int = 3,
                  num_frames: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = Conv3d(dim, dim, (1, 3, 3), use_bias=True, dtype=dtype,
+        self.conv = Conv3d(in_dim, dim, (1, 3, 3), use_bias=True, dtype=dtype,
                            init_std=0.01)
         self.logits = Conv3d(dim, num_anchors, (1, 1, 1), use_bias=True,
                              dtype=dtype, init_std=0.01)
@@ -67,11 +70,13 @@ def center_frame_box(tubes: torch.Tensor, num_frames: int) -> torch.Tensor:
 
 
 def anchor_cell_for_level(cfg, level_index: int, stride: int):
-    """Per-level anchor cell: one RPN.SIZES entry per FPN level."""
+    """Per-level anchor cell: one RPN.SIZES entry per FPN level, or the
+    whole RPN.SIZES set on the single C4 level."""
     from detectandtrack_tpu.ops.anchors import generate_anchors
 
-    return generate_anchors(stride, [cfg.RPN.SIZES[level_index]],
-                            cfg.RPN.ASPECT_RATIOS)
+    sizes = ([cfg.RPN.SIZES[level_index]] if cfg.FPN.FPN_ON
+             else cfg.RPN.SIZES)
+    return generate_anchors(stride, sizes, cfg.RPN.ASPECT_RATIOS)
 
 
 def collect_fpn_proposals(tubes: Sequence[torch.Tensor],

@@ -1,9 +1,44 @@
-"""Keypoint heatmap decode on torch tensors (port of `heatmaps_to_keypoints`
-in detectandtrack_tpu/ops/keypoints.py)."""
+"""Keypoint heatmap decode on torch tensors and the joints' left/right flip
+permutation (port of `heatmaps_to_keypoints` and `flip_permutation` in
+detectandtrack_tpu/ops/keypoints.py, whose module imports JAX)."""
 
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
+
+# PoseTrack v1 (2017): 15 joints, MPII-style order.
+POSETRACK_KEYPOINTS: List[str] = [
+    "right_ankle", "right_knee", "right_hip",
+    "left_hip", "left_knee", "left_ankle",
+    "right_wrist", "right_elbow", "right_shoulder",
+    "left_shoulder", "left_elbow", "left_wrist",
+    "head_bottom", "nose", "head_top",
+]
+
+# COCO: 17 joints.
+COCO_KEYPOINTS: List[str] = [
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear",
+    "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
+    "left_wrist", "right_wrist", "left_hip", "right_hip",
+    "left_knee", "right_knee", "left_ankle", "right_ankle",
+]
+
+_DATASETS = {"posetrack": POSETRACK_KEYPOINTS, "coco": COCO_KEYPOINTS}
+
+
+def flip_permutation(dataset: str = "posetrack") -> np.ndarray:
+    """Joint index permutation that swaps every left_* with its right_*."""
+    names = _DATASETS[dataset]
+    swap = {"left_": "right_", "right_": "left_"}
+    perm = np.arange(len(names))
+    for i, name in enumerate(names):
+        for side, other in swap.items():
+            if name.startswith(side):
+                perm[i] = names.index(other + name[len(side):])
+    return perm
 
 
 def _parabola_offset(lo: torch.Tensor, c: torch.Tensor, hi: torch.Tensor

@@ -1,11 +1,12 @@
-"""Fixed-budget greedy NMS on torch tensors (port of `nms_fixed` in
-detectandtrack_tpu/ops/nms.py).
+"""Fixed-budget greedy NMS and soft-NMS on torch tensors (port of
+`nms_fixed` and `soft_nms_fixed` in detectandtrack_tpu/ops/nms.py).
 
-Same algorithm as the reference: stable score sort, the strictly
-upper-triangular suppression matrix S[j, i] = "j outranks i and IoU > thresh",
-and the Jacobi fixpoint kept ← valid & ¬any_j(S[j, i] & kept[j]), which
-converges to exactly the greedy result. Leading dims are independent lanes
-(the JAX model vmaps over them).
+Greedy NMS: stable score sort, the strictly upper-triangular suppression
+matrix S[j, i] = "j outranks i and IoU > thresh", and the Jacobi fixpoint
+kept ← valid & ¬any_j(S[j, i] & kept[j]), which converges to exactly the
+greedy result. Soft-NMS: the bulk-confirmation fixpoint of the JAX package
+(see `soft_nms_fixed`). Leading dims are independent lanes (the JAX model
+vmaps over them).
 """
 
 from __future__ import annotations
@@ -67,3 +68,64 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     keep_idx = torch.where(keep_mask, keep_idx[..., :max_out],
                            torch.zeros_like(keep_idx[..., :max_out]))
     return keep_idx, keep_mask
+
+
+def soft_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+                   sigma: float = 0.5, iou_thresh: float = 0.3,
+                   score_thresh: float = 0.001, method: str = "linear",
+                   valid: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Soft-NMS (linear or gaussian decay) with a static output budget,
+    batched over leading dims.
+
+    The sequential pick-and-decay scan picks boxes in descending final-score
+    order, so each round confirms, at its provisional score prov(i) = s_i ·
+    Π decays from confirmed overlappers, every box that no unconfirmed
+    overlapper outranks on (prov, -index); the loop ends when a round
+    confirms nothing.
+
+    Returns (keep_idx, keep_mask, new_scores), each (..., max_out): int64
+    indices in descending decayed-score order (0 where masked), the mask of
+    picks above `score_thresh`, and their decayed scores (0 where masked).
+    """
+    n = boxes.shape[-2]
+    dev = boxes.device
+    scores = scores.float()
+    if valid is not None:
+        scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
+    iou = bbox_overlaps(boxes, boxes)
+    if method == "linear":
+        dmat = torch.where(iou > iou_thresh, 1.0 - iou, torch.ones_like(iou))
+    else:                                           # gaussian
+        dmat = torch.exp(-(iou * iou) / sigma)
+    overlaps = (dmat < 1.0) & ~torch.eye(n, dtype=torch.bool, device=dev)
+    alive = scores > _NEG_INF / 2
+    rank = torch.arange(n, device=dev)
+    earlier = rank[:, None] < rank[None, :]
+    confirmed = torch.zeros_like(alive)
+    final = torch.full_like(scores, _NEG_INF)
+    while True:
+        decays = torch.where(confirmed[..., :, None] & overlaps, dmat,
+                             torch.ones_like(dmat))
+        prov = scores * decays.prod(dim=-2)
+        pj, pi = prov[..., :, None], prov[..., None, :]
+        beats = (pj > pi) | ((pj == pi) & earlier)
+        outranked = ((~confirmed & alive)[..., :, None] & overlaps
+                     & beats).any(dim=-2)
+        newly = ~confirmed & alive & ~outranked
+        if not bool(newly.any()):
+            break
+        final = torch.where(newly, prov, final)
+        confirmed = confirmed | newly
+
+    k = min(n, max_out)
+    order = torch.argsort(-final, dim=-1, stable=True)[..., :k]
+    out_scores = torch.gather(final, -1, order)
+    mask = out_scores > score_thresh
+    idx = torch.where(mask, order, torch.zeros_like(order))
+    out_scores = torch.where(mask, out_scores, torch.zeros_like(out_scores))
+    if k < max_out:
+        idx, mask, out_scores = (
+            torch.cat([x, x.new_zeros(x.shape[:-1] + (max_out - k,))], -1)
+            for x in (idx, mask, out_scores))
+    return idx, mask, out_scores

@@ -7,7 +7,10 @@ of module that owns it:
 
   Conv3d            (t, kh, kw, ci, co) → (co, ci, t, kh, kw)
   nn.Linear         (in, out)           → (out, in)
+  nn.Conv2d         (kh, kw, ci, co)    → (co, ci, kh, kw)
   nn.ConvTranspose2d (kh, kw, ci, co)   → (ci, co, kh, kw), spatially flipped
+                    (flax's transposed conv does not flip its kernel; the
+                    keypoint 4x4/s2 and the mask 2x2/s2 deconvs alike)
   everything else   unchanged (conv1's canonical (t, 7, 7, 3, 64) kernel,
                     affine scales, biases)
 
@@ -31,6 +34,8 @@ def _to_port(module: nn.Module, arr: np.ndarray) -> np.ndarray:
         return arr.transpose(4, 3, 0, 1, 2)
     if isinstance(module, nn.Linear) and arr.ndim == 2:
         return arr.T
+    if isinstance(module, nn.Conv2d) and arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
     if isinstance(module, nn.ConvTranspose2d) and arr.ndim == 4:
         return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     return arr
@@ -41,6 +46,8 @@ def _to_jax(module: nn.Module, arr: np.ndarray) -> np.ndarray:
         return arr.transpose(2, 3, 4, 1, 0)
     if isinstance(module, nn.Linear) and arr.ndim == 2:
         return arr.T
+    if isinstance(module, nn.Conv2d) and arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)
     if isinstance(module, nn.ConvTranspose2d) and arr.ndim == 4:
         return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
     return arr

@@ -77,6 +77,61 @@ print("modules", len(mods))
 """
 
 
+_SURFACE = _BLOCK_JAX + """
+import numpy as np, torch
+from detectandtrack_tpu.core.config import load_cfg
+from detectandtrack_tpu.tracking.tracker import Tracker, TrackerConfig
+from detectandtrack_tpu_torch.engine.inference import (
+    clip_slice, detections_to_frames, make_detect_fn)
+from detectandtrack_tpu_torch.engine.train import (create_train_state,
+                                                    make_train_step)
+from detectandtrack_tpu_torch.models.detector import build_model
+small = ["MODEL.CONV_BODY", "resnet18", "RESNETS.WIDTH_PER_GROUP", 8,
+         "MODEL.COMPUTE_DTYPE", "float32", "MODEL.MASK_ON", True,
+         "TEST.SHAPE_BUCKETS", "[[64, 96]]", "TEST.BBOX_AUG_ENABLED", True,
+         "RPN.PRE_NMS_TOP_N_TEST", 64, "RPN.POST_NMS_TOP_N_TEST", 16,
+         "TEST.DETECTIONS_PER_IM", 4, "TEST.SCORE_THRESH", -1.0,
+         "KRCNN.NUM_STACKED_CONVS", 1, "KRCNN.CONV_HEAD_DIM", 8,
+         "MRCNN.DIM_REDUCED", 8,
+         "RPN.PRE_NMS_TOP_N_TRAIN", 100, "RPN.POST_NMS_TOP_N_TRAIN", 32,
+         "RPN.BATCH_SIZE_PER_IM", 32, "FAST_RCNN.BATCH_SIZE_PER_IM", 32,
+         "MRCNN.TRAIN_MAX_ROIS_PER_IM", 8, "KRCNN.TRAIN_MAX_ROIS_PER_IM", 8]
+cfg = load_cfg("configs/video/2d_R50_C4_kps.yaml", opts=small)
+assert not cfg.FPN.FPN_ON and cfg.MODEL.MASK_ON
+model = build_model(cfg, seed=0)
+clip = torch.from_numpy(np.random.default_rng(0).normal(
+    size=(1, 1, 64, 96, 3)).astype(np.float32))
+det = make_detect_fn(model, flip_tta=True)(clip)
+assert tuple(det["masks"].shape) == (1, 4, 1, 28, 28)
+assert tuple(det["features"].shape) == (1, 4, 2048)
+assert all(torch.isfinite(v).all() for v in det.values()
+           if v.is_floating_point())
+frames = detections_to_frames(clip_slice(det, 0), 1, 1.0)
+assert frames[0]["masks"].shape == (4, 28, 28)
+ids = Tracker(TrackerConfig(score_thresh=0.0)).update(
+    frames[0]["boxes"], frames[0]["scores"], frames[0]["keypoints"],
+    frames[0]["features"], frames[0]["valid"])
+assert (ids >= 0).sum() == int(det["valid"].sum())
+tcfg = load_cfg("configs/video/2d_R50_FPN_mask_kps.yaml", opts=small)
+tmodel = build_model(tcfg, seed=0, train=True)
+state = create_train_state(tcfg, tmodel)
+gt = torch.tensor([[[10.0, 8.0, 50.0, 60.0]]])
+batch = {"clips": clip, "gt_boxes": gt,
+         "gt_keypoints": torch.zeros((1, 1, 1, 15, 3)),
+         "gt_valid": torch.ones((1, 1), dtype=torch.bool),
+         "gt_masks": torch.ones((1, 1, 1, 28, 28)),
+         "gt_mask_valid": torch.ones((1, 1, 1), dtype=torch.bool)}
+state, metrics = make_train_step(tmodel, tcfg)(state, batch)
+assert set(metrics) >= {"loss_total", "loss_mask", "loss_kps"}
+assert all(torch.isfinite(v) for v in metrics.values())
+assert tmodel.mask_head.conv5_mask.weight.grad.abs().max() > 0
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+          "flax") and sys.modules[m] is not None]
+assert not loaded, loaded
+print("surface ok")
+"""
+
+
 def _run(code, cwd, timeout=300):
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
@@ -87,6 +142,14 @@ def test_port_imports_and_runs_without_jax():
     proc = _run(_SLICE, REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "modules" in proc.stdout
+
+
+def test_surface_runs_without_jax():
+    """A C4 + mask model through flip TTA into the tracker, and one
+    MASK_ON training step, with jax/flax blocked."""
+    proc = _run(_SURFACE, REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "surface ok" in proc.stdout
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

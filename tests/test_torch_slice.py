@@ -44,7 +44,8 @@ def _random_params(shapes, rng, path=()):
         v = rng.uniform(0.8, 1.2, shapes)
     elif name == "bias":
         v = rng.normal(0.0, 0.02, shapes)
-    elif parent in ("cls_score", "kps_score_lowres") or "rpn_head" in path:
+    elif (parent in ("cls_score", "kps_score_lowres", "mask_fcn_logits")
+          or "rpn_head" in path):
         v = rng.normal(0.0, 0.01, shapes)
     elif parent == "bbox_pred":
         v = rng.normal(0.0, 0.001, shapes)

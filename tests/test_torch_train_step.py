@@ -24,6 +24,7 @@ from detectandtrack_tpu_torch.engine import train as ttrain
 from detectandtrack_tpu_torch.models.detector import build_model
 from detectandtrack_tpu_torch.utils.params import (jax_params_to_state_dict,
                                                    state_dict_to_jax_params)
+from detectandtrack_tpu_torch.utils.synthetic import train_batch
 from test_golden_hard import _OPTS as HARD_OPTS
 from test_torch_slice import _pair
 
@@ -31,21 +32,13 @@ B, T, G, H, W = 2, 2, 10, 64, 96
 LOSS_TOL = 1e-4
 
 
-def make_batch(seed=0):
-    """Seeded numpy batch in the train-step contract: realistic GT tubes,
-    15 keypoints per frame inside them, 3 and 2 valid GT rows."""
-    rng = np.random.default_rng(seed)
-    tubes = make_realistic_tubes(B, G, T, H, W, seed=seed + 1)
-    box = tubes.reshape(B, G, T, 1, 4)
-    u = rng.uniform(size=(B, G, T, 15, 2))
-    kps = np.stack([box[..., 0] + u[..., 0] * (box[..., 2] - box[..., 0]),
-                    box[..., 1] + u[..., 1] * (box[..., 3] - box[..., 1]),
-                    rng.integers(0, 3, size=(B, G, T, 15))], axis=-1)
-    valid = np.zeros((B, G), bool)
-    valid[0, :3] = valid[1, :2] = True
-    return {"clips": rng.normal(size=(B, T, H, W, 3)).astype(np.float32),
-            "gt_boxes": tubes, "gt_keypoints": kps.astype(np.float32),
-            "gt_valid": valid}
+def make_batch(seed=0, t=T, mask_size=0):
+    """Seeded numpy batch in the train-step contract at t frames:
+    realistic GT tubes, 15 keypoints per frame inside them, 3 and 2 valid
+    GT rows; with `mask_size`, disc bitmaps and frame validity."""
+    return train_batch(np.random.default_rng(seed),
+                       make_realistic_tubes(B, G, t, H, W, seed=seed + 1),
+                       [3, 2], (H, W), mask_size)
 
 
 def jax_draws(seed, step):
