@@ -5,14 +5,20 @@
 
 Phases, one line each (any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile both CUDA sources from csrc/ (one nvcc each, in
-     parallel, sm_90a);
-  3. conv1 kernel against its plain version (F.conv3d) at the main path's
-     (2, 8, 800, 1344, 3) t=3 clip and an odd-sized t=1 clip, f32 and bf16;
+  2. build: compile the three native sources from csrc/ (one compiler
+     each, in parallel: conv1.cu and roi_align.cu with nvcc for sm_90a,
+     the tracker's hungarian.cpp with g++);
+  3. conv1 against its plain version (pad + F.conv3d) at the main path's
+     (2, 8, 800, 1344, 3) clip at t=3 and t=1 and an odd-sized t=1 clip:
+     bf16 through the tensor-core kernel, f32 through the CUDA-core kernel;
+     at full size also the CUDA-core kernel on bf16 and one F.conv3d call
+     (cuDNN), the bound and the kernel's share of it;
   4. RoIAlign kernel (K1) against its plain version at the box stage (S=16,
      K=300, P=7) and the keypoint stage (K=20, P=14) over the four FPN
      levels of an 800x1344 clip, f32 and bf16, with realistic tubes plus
-     degenerate, sub-pixel, out-of-map and 6:1 rois;
+     degenerate, sub-pixel, out-of-map and 6:1 rois; its bound from the
+     distinct map cells those rois touch; K3 on the same rois equal to it
+     bit for bit;
   5. K3 (RoIAlign over (roi, slab) pairs): its path, the five entry points
      of kernels/roi_align_ops.py once each at tube-pooling shape with the
      launch counter read; then the kernel against its plain version through
@@ -49,7 +55,10 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      and of every new branch (R-18 bodies, 64x96), then one training step
      each of the golden model and of the mask, C4, center-frame and
      RPN-only branches (losses and every gradient).
-Then it prints the kernels' JSON line (launches summed over the paths),
+Then it prints the kernels' JSON line (launches summed over the
+full-width paths; conv1's f32 kernel counted over the parity phases, K3 on
+its own path; each with its time, its plain version's, its bound and the
+one PyTorch call that computes the same function, where there is one),
 the nvidia-smi card line and, last, {"ok": true, "device": {...}}. It exits
 nonzero without a CUDA device.
 """
@@ -66,6 +75,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 BF16_REL_TOL = 2.0 ** -6    # bf16 outputs: 4 ulps at the largest |ref| >= 1
 F32_TOL = 1e-4              # f32 outputs of magnitude ~1
+# One H100 SXM (published dense peaks): bf16 tensor-core and f32 CUDA-core
+# peaks, HBM bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 BOX_CFG = "configs/video/3d_R50_T8_tubes_kps.yaml"
 TRAIN_SMOKE_LR = 1e-4      # SOLVER.BASE_LR of the full-width training phase
 GRAD_REL_TOL = 1e-3         # card vs CPU gradients, of each one's max |g|
@@ -168,27 +182,80 @@ def _check(name, got, ref, dtype, torch):
     return err, tol
 
 
+def _bound(n_bytes, flops, peak_flops):
+    """The least time (ms) the card could take, and what sets it."""
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    by_ops = flops / peak_flops * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def _conv1_bound(shape, t, dtype):
+    """conv1's bound: x and k7 read once, the output written once; 2 FLOP
+    per multiply-add, on the tensor cores in bf16, the CUDA cores in f32."""
+    b, nt, h, w, _ = shape
+    size = 2 if str(dtype).endswith("bfloat16") else 4
+    outs = b * nt * ((h + 1) // 2) * ((w + 1) // 2) * 64
+    n_bytes = (b * nt * h * w * 3 + t * 49 * 3 * 64 + outs) * size
+    peak = PEAK_BF16_FLOPS if size == 2 else PEAK_F32_FLOPS
+    return _bound(n_bytes, 2 * outs * t * 49 * 3, peak)
+
+
 def phase_conv1(torch, results):
-    from detectandtrack_tpu_torch.kernels.conv1 import conv1, conv1_reference
+    """conv1 against its plain version: the main path's clip at t=3 and
+    t=1 and an odd-sized t=1 clip, bf16 (the tensor-core kernel) and f32
+    (the CUDA-core kernel); at the full-size shapes also the CUDA-core
+    kernel on bf16 and one F.conv3d call (cuDNN) on the padded input, with
+    the bound and the kernel's share of it."""
+    import torch.nn.functional as F
+    from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_cuda_core,
+                                                        conv1_reference)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [((2, 8, 800, 1344, 3), 3), ((1, 3, 97, 131, 3), 1)]
+    cases = [((2, 8, 800, 1344, 3), 3), ((2, 1, 800, 1344, 3), 1),
+             ((1, 3, 97, 131, 3), 1)]
     for shape, t in cases:
         x = torch.randn(shape, device="cuda", generator=gen)
         k7 = torch.randn((t, 7, 7, 3, 64), device="cuda", generator=gen) * (
             2.0 / (t * 49 * 64)) ** 0.5
-        for dtype in (torch.float32, torch.bfloat16):
-            got = conv1(x, k7, t, dtype)
-            ref = conv1_reference(x, k7, t, dtype)
-            name = f"conv1 {shape} t={t} {str(dtype)[6:]}"
+        for dtype in (torch.bfloat16, torch.float32):
+            if t == 1 and shape[2] == 800 and dtype == torch.float32:
+                continue
+            xd, kd = x.to(dtype), k7.to(dtype)
+            got = conv1(xd, kd, t, dtype)
+            ref = conv1_reference(xd, kd, t, dtype)
+            route = "tensor-core" if dtype == torch.bfloat16 else "CUDA-core"
+            name = f"conv1 {shape} t={t} {str(dtype)[6:]} ({route} kernel)"
             err, tol = _check(name, got, ref, dtype, torch)
-            ms = _time_ms(torch, lambda: conv1(x, k7, t, dtype))
-            plain_ms = _time_ms(torch, lambda: conv1_reference(x, k7, t,
+            del got, ref
+            ms = _time_ms(torch, lambda: conv1(xd, kd, t, dtype))
+            plain_ms = _time_ms(torch, lambda: conv1_reference(xd, kd, t,
                                                                dtype))
-            print(f"[conv1] {name}: max_abs_err={err:.3g} (tol {tol:.3g}) "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-            if shape[0] == 2 and dtype == torch.bfloat16:
-                results["conv1"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms)
+            line = (f"[conv1] {name}: max_abs_err={err:.3g} (tol {tol:.3g}) "
+                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            if shape[2] == 800:
+                xp = F.pad(xd.permute(0, 4, 1, 2, 3),
+                           (3, 3, 3, 3, (t - 1) // 2, t // 2)).contiguous()
+                wt = kd.permute(4, 3, 0, 1, 2).contiguous()
+                library_ms = _time_ms(torch, lambda: F.conv3d(
+                    xp, wt, stride=(1, 2, 2)))
+                del xp
+                bound_ms, bound_by = _conv1_bound(shape, t, dtype)
+                line += (f", F.conv3d {library_ms:.3f} ms; bound "
+                         f"{bound_ms:.3f} ms ({bound_by}), "
+                         f"{100 * bound_ms / ms:.1f}% of it")
+                if dtype == torch.bfloat16:
+                    cc_ms = _time_ms(torch, lambda: conv1_cuda_core(
+                        xd, kd, t, dtype))
+                    line += f"; CUDA-core kernel on bf16 {cc_ms:.3f} ms"
+                if t == 3:
+                    key = "conv1" if dtype == torch.bfloat16 else "conv1_f32"
+                    results[key] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by,
+                                        library_ms=library_ms)
+            print(line, flush=True)
+            del xd
+        del x
 
 
 SPECIAL_ROIS = [
@@ -204,7 +271,7 @@ SPECIAL_ROIS = [
 def _roi_cases(torch, k, b=2):
     """(S=8b, K, 4) slab rois from realistic tubes with special rois mixed
     in, and their (S, K) levels."""
-    from bench import make_realistic_tubes
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
     from detectandtrack_tpu_torch.kernels.roi_align import assign_fpn_levels
     t, h, w = 8, 800, 1344
     tubes = torch.as_tensor(make_realistic_tubes(b, k, t, h, w, seed=k))
@@ -219,15 +286,37 @@ def _roi_cases(torch, k, b=2):
     return rois.cuda().contiguous(), levels.cuda().contiguous()
 
 
+def _roi_align_bound(torch, shapes, strides, rois, slabs, levels, p,
+                     dtype):
+    """K1's / K3's bound, from this run's rois: the distinct map cells
+    their samples' bilinear corners need (nonzero weight), each read once,
+    the rois and levels, and the output written once; 2 FLOP per corner of
+    each sample, on the CUDA cores."""
+    from detectandtrack_tpu_torch.kernels import roi_align as ra
+    taps = ra._taps(shapes, strides, rois.cpu().float(), slabs.cpu(),
+                    levels.cpu(), p, 2)
+    cells = torch.unique(torch.cat([idx[w != 0] for idx, w in taps]))
+    n, c = rois.shape[0], shapes[0][3]
+    size = 2 if dtype == torch.bfloat16 else 4
+    n_bytes = (cells.numel() + n * p * p) * c * size + n * 5 * 4
+    return _bound(n_bytes, n * p * p * c * 4 * 4 * 2, PEAK_F32_FLOPS)
+
+
 def phase_roi_align(torch, results):
+    """K1 against its plain version at the box and keypoint stages, with
+    its bound; K3 on the same rois (as (roi, slab) pairs) equal to K1 bit
+    for bit."""
     from detectandtrack_tpu_torch.kernels.roi_align import (
-        roi_align_multilevel, roi_align_multilevel_reference)
+        roi_align_multilevel, roi_align_multilevel_reference, roi_align_pairs,
+        slab_of_rows)
     gen = torch.Generator(device="cuda").manual_seed(2)
     strides = [4, 8, 16, 32]
     maps32 = [torch.randn((16, 800 // s, 1344 // s, 256), device="cuda",
                           generator=gen) for s in strides]
+    shapes = [tuple(m.shape) for m in maps32]
     for stage, k, p in (("box", 300, 7), ("keypoint", 20, 14)):
         rois, levels = _roi_cases(torch, k)
+        slabs = slab_of_rows(16, k, "cuda")
         for dtype in (torch.float32, torch.bfloat16):
             maps = [m.to(dtype) for m in maps32]
             got = roi_align_multilevel(maps, strides, rois, levels, p, 2)
@@ -235,21 +324,33 @@ def phase_roi_align(torch, results):
                                                  p, 2)
             name = f"roi_align {stage} S=16 K={k} P={p} {str(dtype)[6:]}"
             err, tol = _check(name, got, ref, dtype, torch)
+            k3 = roi_align_pairs(maps, strides, rois.reshape(-1, 4), slabs,
+                                 levels.reshape(-1), p, 2)
+            if not torch.equal(k3.reshape(got.shape), got):
+                raise RuntimeError(f"{name}: K3 differs from K1 on the same "
+                                   "rois")
+            del got, ref, k3
             ms = _time_ms(torch, lambda: roi_align_multilevel(
                 maps, strides, rois, levels, p, 2))
             plain_ms = _time_ms(torch, lambda: roi_align_multilevel_reference(
                 maps, strides, rois, levels, p, 2), iters=3, warmup=1)
+            bound_ms, bound_by = _roi_align_bound(
+                torch, shapes, strides, rois.reshape(-1, 4), slabs,
+                levels.reshape(-1), p, dtype)
             print(f"[roi_align] {name}: max_abs_err={err:.3g} (tol {tol:.3g})"
-                  f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+                  f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}%"
+                  f" of it; K3 equal to K1 bit for bit", flush=True)
             if stage == "box" and dtype == torch.bfloat16:
-                results["roi_align"] = dict(max_abs_err=err, ms=ms,
-                                            plain_ms=plain_ms)
+                results["roi_align"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del maps
 
 
 def phase_k3(torch, results):
     """K3's path, then K3 against its plain version."""
-    from bench import make_realistic_tubes
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels import roi_align_ops as ops
     from detectandtrack_tpu_torch.kernels.roi_align import assign_fpn_levels
@@ -315,16 +416,22 @@ def phase_k3(torch, results):
             print(f"[k3] {name}: max_abs_err={err:.3g} (tol {tol:.3g}) "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if label.startswith("roi_align_3d") and dtype == torch.bfloat16:
-                results["roi_align_k3"] = dict(max_abs_err=err, ms=ms,
-                                               plain_ms=plain_ms,
-                                               launches=launches)
+                bound_ms, bound_by = _roi_align_bound(
+                    torch, [tuple(stack.shape)], [1], flat, frame,
+                    torch.zeros_like(frame), p, dtype)
+                print(f"[k3] {name}: bound {bound_ms:.4f} ms ({bound_by}), "
+                      f"{100 * bound_ms / ms:.1f}% of it", flush=True)
+                results["roi_align_k3"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    launches=launches)
         del stack
 
 
 def phase_backward(torch, results):
     """The RoIAlign backward kernel and conv1's autograd Function against
     their plain versions."""
-    from bench import make_realistic_tubes
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import (conv1_autograd,
                                                         conv1_reference)
@@ -366,8 +473,18 @@ def phase_backward(torch, results):
                   f"{min(t for _, t in errs):.3g}) kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms", flush=True)
             if label.startswith("box") and dtype == torch.bfloat16:
+                # grad read once, the level maps (in the feature dtype)
+                # written once; 2 FLOP per corner tap on the CUDA cores.
+                n_bytes = (grad.numel() + sum(
+                    a * b * c * d for a, b, c, d in shp)) * 2
+                bound_ms, bound_by = _bound(n_bytes, grad.numel() * 32,
+                                            PEAK_F32_FLOPS)
+                print(f"[backward] {name}: bound {bound_ms:.4f} ms "
+                      f"({bound_by}), {100 * bound_ms / ms:.1f}% of it",
+                      flush=True)
                 results["roi_align_backward"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
             del grad
         torch.cuda.empty_cache()
 
@@ -398,7 +515,7 @@ def _train_batch(torch, cfg, b, h, w, g, n_valid, seed):
     realistic GT tubes, 15 keypoints per frame inside them, `n_valid` valid
     GT rows per clip; with MODEL.MASK_ON, a disc bitmap per GT box and
     frame, 80% of frames annotated (utils/synthetic.train_batch)."""
-    from bench import make_realistic_tubes
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
     from detectandtrack_tpu_torch.utils.synthetic import train_batch
     tubes = make_realistic_tubes(b, g, _frames(cfg), h, w, seed=seed)
     batch = train_batch(np.random.default_rng(seed), tubes, [n_valid] * b,
@@ -410,7 +527,7 @@ def _train_batch(torch, cfg, b, h, w, g, n_valid, seed):
 def _track(frames_per_clip):
     """Link each clip's frames; → (track ids, detections matched to a
     track of an earlier frame)."""
-    from detectandtrack_tpu.tracking.tracker import Tracker, TrackerConfig
+    from detectandtrack_tpu_torch.tracking.tracker import Tracker, TrackerConfig
     n_tracks, linked = 0, 0
     for frames in frames_per_clip:
         tracker = Tracker(TrackerConfig(score_thresh=0.0))
@@ -438,15 +555,17 @@ def _heads(model):
 def _reset_counters():
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
-    conv1.launches = 0
+    conv1.launches = conv1.launches_tc = conv1.launches_cc = 0
     ra.roi_align_multilevel.launches = 0
     ra.roi_align_backward.launches = 0
 
 
 def _read_counters():
+    """The launches since `_reset_counters`: conv1's tensor-core (bf16) and
+    CUDA-core (f32) kernels, K1, the RoIAlign backward."""
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
-    return {"conv1": conv1.launches,
+    return {"conv1": conv1.launches_tc, "conv1_f32": conv1.launches_cc,
             "roi_align": ra.roi_align_multilevel.launches,
             "roi_align_backward": ra.roi_align_backward.launches}
 
@@ -485,7 +604,7 @@ def _serve(torch, tag, model, detect, warmup, requests, passes=1):
     launches = _read_counters()
     peak = torch.cuda.max_memory_allocated()
     heads = _heads(model)
-    per_request = {"conv1": passes, "roi_align_backward": 0,
+    per_request = {"conv1": passes, "conv1_f32": 0, "roi_align_backward": 0,
                    "roi_align": passes * len(heads) - (passes - 1) * int(
                        "mask_head" in heads)}
     want = {k: len(requests) * v for k, v in per_request.items()}
@@ -513,8 +632,8 @@ def phase_slice(torch):
     """The main inference path: 4 full-width requests, 3 on realistic
     tubes through the RPN's NMS and 1 through the model's own RPN, then
     every clip tracked."""
-    from bench import make_realistic_tubes
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
+    from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.inference import (
         clip_slice, detections_to_frames, make_detect_fn)
     from detectandtrack_tpu_torch.models.detector import build_model
@@ -584,7 +703,8 @@ def _train_steps(torch, tag, cfg, n_steps, seed):
     launches = _read_counters()
     peak = torch.cuda.max_memory_allocated()
     heads = _heads(model)
-    want = {"conv1": n_steps, "roi_align": len(heads) * n_steps,
+    want = {"conv1": n_steps, "conv1_f32": 0,
+            "roi_align": len(heads) * n_steps,
             "roi_align_backward": len(heads) * n_steps}
     if launches != want:
         raise RuntimeError(f"{tag}: launch counters {launches}, expected "
@@ -635,7 +755,7 @@ def phase_train_parity(torch):
     both devices, which holds the port's code without the two libraries'
     different f32 rounding. Losses 1e-4; every gradient GRAD_REL_TOL of
     its largest entry, or the case's own bound across the libraries."""
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.train import (create_train_state,
                                                         make_train_step)
     from detectandtrack_tpu_torch.models.detector import build_model
@@ -715,8 +835,8 @@ def phase_surface_kernels(torch):
     post-NMS count) and in training (IMS_PER_BATCH images, the Fast R-CNN
     sample count), with the backward at that training shape; K1 at the
     mask stage (the final detections on the FPN levels)."""
-    from bench import make_realistic_tubes
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
+    from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1, conv1_reference
     from detectandtrack_tpu_torch.models.detector import build_model
@@ -801,11 +921,12 @@ def phase_surface(torch):
     """Every new path at full width, bf16, seeded weights: 1 warm-up and 2
     requests of B=2 clips through each inference path, 1 warm-up and 2
     steps of each training path → the launches summed over the paths."""
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.inference import make_detect_fn
     from detectandtrack_tpu_torch.models.detector import build_model
 
-    total = {"conv1": 0, "roi_align": 0, "roi_align_backward": 0}
+    total = {"conv1": 0, "conv1_f32": 0, "roi_align": 0,
+             "roi_align_backward": 0}
     b, n_req = 2, 2
     for path, tta in SURFACE_CFGS:
         cfg = load_cfg(os.path.join(REPO, path))
@@ -884,7 +1005,7 @@ def phase_parity(torch):
     everywhere, elsewhere where the measured heatmap error cannot move them
     (`_kps_held`: random heatmaps are nearly flat, so a rounding difference
     can swap an argmax); the excused ones are reported."""
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.inference import (detect_outputs,
                                                             make_kps_aug_fns)
     from detectandtrack_tpu_torch.models.detector import build_model
@@ -976,7 +1097,7 @@ def main() -> int:
     os.chdir(REPO)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.kernels import _build
 
     card = _card_line()
@@ -985,10 +1106,11 @@ def main() -> int:
           f"{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build(["conv1", "roi_align"])
-    for name in ("conv1", "roi_align"):
+    sources = ["conv1", "roi_align", "hungarian"]
+    _build.build(sources)
+    for name in sources:
         _build.load_library(name)
-    print(f"[build] conv1 + roi_align built in "
+    print(f"[build] {', '.join(sources)} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -1011,14 +1133,20 @@ def main() -> int:
         3, seed=7)
     phase_surface_kernels(torch)
     surface = phase_surface(torch)
+    # The f32 models of the parity phases run conv1's CUDA-core kernel.
+    _reset_counters()
     phase_parity(torch)
     phase_train_parity(torch)
+    parity = _read_counters()
+    if parity["conv1_f32"] == 0:
+        raise RuntimeError(f"parity: launch counters {parity}: conv1's f32 "
+                           "kernel never ran")
     launches = {k: inference[k] + training[k] + surface[k]
                 for k in training}
     print(f"[launches] inference slice {inference}; training slice "
-          f"{training}; surface paths {surface}; k3 path "
-          f"{results['roi_align_k3']['launches']}; sum {launches}",
-          flush=True)
+          f"{training}; surface paths {surface}; parity phases {parity}; "
+          f"k3 path {results['roi_align_k3']['launches']}; sum of the "
+          f"full-width paths {launches}", flush=True)
 
     ra = "detectandtrack_tpu/kernels/roi_align.py"
     k3 = dict(results["roi_align_k3"])
@@ -1027,6 +1155,10 @@ def main() -> int:
          "source": "detectandtrack_tpu_torch/csrc/conv1.cu",
          "replaces": "detectandtrack_tpu/kernels/conv1.py:167",
          "launches": launches["conv1"], **results["conv1"]},
+        {"name": "conv1_f32", "route": "cuda",
+         "source": "detectandtrack_tpu_torch/csrc/conv1.cu",
+         "replaces": "detectandtrack_tpu/kernels/conv1.py:167",
+         "launches": parity["conv1_f32"], **results["conv1_f32"]},
         {"name": "roi_align_multilevel", "route": "cuda",
          "source": "detectandtrack_tpu_torch/csrc/roi_align.cu",
          "replaces": f"{ra}:477",

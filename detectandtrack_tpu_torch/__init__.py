@@ -7,9 +7,11 @@ Hopper (`csrc/`, built with nvcc on first use and bound with ctypes).
 
 Public functions keep the JAX package's layouts: clips (B, T, H, W, 3),
 pyramid maps channels-last (B, T, H, W, C), pooled RoI features
-(S, K, P, P, C) and padded detections (B, D, ...). Framework-free modules of
-the JAX package (config, anchors, tracker) are reused by import; nothing
-here imports jax or flax.
+(S, K, P, P, C) and padded detections (B, D, ...). The port keeps its own
+copies of the JAX package's framework-free modules (`core/config.py`,
+`ops/anchors.py`, `tracking/`, the Hungarian solver `csrc/hungarian.cpp`):
+nothing here imports jax, flax or the JAX package. Its entry points run on
+the CUDA card unless given a CPU device (`build_model(cfg, device="cpu")`).
 """
 
 __version__ = "0.1.0"

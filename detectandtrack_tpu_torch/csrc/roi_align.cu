@@ -22,17 +22,27 @@
 // its row (slab = n / K), K3 reads it from a per-roi table, so the two
 // agree bit for bit on the same roi.
 //
-// What bounds the forward on the H100: the latency of dependent gathers.
-// The work is 4*s*s loads and FMAs per output element (about 2 GFLOP and
-// 2 GB of corner reads for a whole box stage, S=16, K=300, P=7, C=256), far
-// from the FLOP and HBM limits: the corner rows of neighbouring samples
-// overlap and mostly hit L1/L2.
-// Design: one block per (roi, output row) gives N*P blocks (33,600 for the
-// box stage), enough to keep every SM busy; the sample coordinates and
-// weights of the row are computed once into shared memory; threads run
-// across channels, so in the channels-last maps each corner read of a warp
-// is one contiguous run of C values. Loads are f32 or bf16, the sum is f32,
-// the output has the feature dtype.
+// What bounds the forward on the H100: bytes. The work is 4*s*s loads
+// and FMAs per output element (1.9 GFLOP for a whole box stage, S=16,
+// K=300, P=7, C=256), far from the FLOP limit; the bound is the output
+// (120 MB in bf16) plus the distinct map cells the rois' corners touch,
+// read once. Corner rows of neighbouring samples overlap and hit L1/L2.
+// Design (redesigned for 16-byte gathers): one block per roi (or per
+// slice of its bins when there are too few rois to fill the card, as at
+// the keypoint stage); the roi's geometry (level, slab, its P*s x and P*s
+// y samples) is computed once into shared memory, and its P*P bins are
+// spread over the block's 7 warps (P = 7 and 14 give whole rounds). Each
+// lane owns 8 consecutive channels of a bin, so a corner read is one
+// 16-byte load (bf16; two in f32) and one warp instruction covers C=256 in
+// bf16. A lane issues the 4 corners of each of the s*s samples of its bin
+// as independent loads (all 16 in flight at s=2), folds sample validity
+// into the weights (an invalid sample still loads its clamped, in-bounds
+// corners, with weight 0), keeps the f32 sum in registers in the order
+// iy, ix, then the four corners, and writes its 8 outputs with one 16-byte
+// store. Where C % 8 != 0 or a map is not 16-byte aligned, the same kernel
+// loads each of a lane's channels (the last lane's C % 8 of them) one by
+// one, in the same order: it never falls back to the plain version. Loads
+// are f32 or bf16, the sum is f32, the output has the feature dtype.
 //
 // The backward scatters each output gradient back to the same corners with
 // f32 atomicAdd into zeroed f32 level maps (the wrapper casts them to the
@@ -50,7 +60,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -105,9 +117,10 @@ __device__ __forceinline__ Sample axis_sample(float start, float bin_size,
   return out;
 }
 
-// Where roi n pools from and its row of samples: level, slab and the
-// x samples of every bin plus the y samples of bin row ph, into shared
-// memory (callers __syncthreads() after).
+// Where roi n pools from and its samples: level, slab, the x samples of
+// every bin and the y samples of bin rows ph .. ph + n_rows - 1, into shared
+// memory (callers __syncthreads() after). The forward takes every row, the
+// backward one, so both sample at the same positions.
 struct RoiGeometry {
   int lvl, slab, H, W;
 };
@@ -115,7 +128,7 @@ struct RoiGeometry {
 __device__ __forceinline__ RoiGeometry roi_row_samples(
     const LevelTable& lv, int n_levels, const float* __restrict__ rois,
     const int* __restrict__ levels, const int* __restrict__ slabs,
-    int n_slabs, int n, int K, int P, int s, int ph, Sample* xs,
+    int n_slabs, int n, int K, int P, int s, int ph, int n_rows, Sample* xs,
     Sample* ys) {
   RoiGeometry g;
   g.lvl = levels ? min(max(levels[n], 0), n_levels - 1) : 0;
@@ -133,55 +146,177 @@ __device__ __forceinline__ RoiGeometry roi_row_samples(
                                 static_cast<float>(P));
   for (int i = threadIdx.x; i < P * s; i += blockDim.x)
     xs[i] = axis_sample(x1, bin_w, i / s, i % s, s, g.W);
-  for (int i = threadIdx.x; i < s; i += blockDim.x)
-    ys[i] = axis_sample(y1, bin_h, ph, i, s, g.H);
+  for (int i = threadIdx.x; i < n_rows * s; i += blockDim.x)
+    ys[i] = axis_sample(y1, bin_h, ph + i / s, i % s, s, g.H);
   return g;
 }
 
-// Forward. slabs == nullptr: roi n pools from slab n / K (K1's slab-grouped
-// layout); otherwise from slabs[n] (K3). levels == nullptr: level 0.
+// Eight consecutive channels of one map cell, as loaded: one 16-byte load
+// in bf16, two in f32.
+template <typename T> struct Chunk;
+template <> struct Chunk<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float at(int i) const {
+    const uint32_t word = i < 4 ? (i < 2 ? u.x : u.y) : (i < 6 ? u.z : u.w);
+    return __uint_as_float((i & 1) ? (word & 0xffff0000u) : (word << 16));
+  }
+};
+template <> struct Chunk<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float at(int i) const {
+    const float4& h = i < 4 ? a : b;
+    const int j = i & 3;
+    return j < 2 ? (j == 0 ? h.x : h.y) : (j == 2 ? h.z : h.w);
+  }
+};
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&b2);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// A sample's 4 corner cells (lo/hi row x lo/hi column, offsets in values)
+// and their bilinear weights with the 1/s^2 mean folded in, zero for an
+// invalid sample.
+struct Corners {
+  size_t c00, c01, c10, c11;
+  float w00, w01, w10, w11;
+};
+
+__device__ __forceinline__ Corners corners(const Sample& y, const Sample& x,
+                                           int W, int C, float vw) {
+  Corners k;
+  const size_t r0 = static_cast<size_t>(y.lo) * W;
+  const size_t r1 = static_cast<size_t>(y.hi) * W;
+  k.c00 = (r0 + x.lo) * C;
+  k.c01 = (r0 + x.hi) * C;
+  k.c10 = (r1 + x.lo) * C;
+  k.c11 = (r1 + x.hi) * C;
+  const bool ok = y.valid && x.valid;
+  k.w00 = ok ? y.wlo * x.wlo * vw : 0.0f;
+  k.w01 = ok ? y.wlo * x.whi * vw : 0.0f;
+  k.w10 = ok ? y.whi * x.wlo * vw : 0.0f;
+  k.w11 = ok ? y.whi * x.whi * vw : 0.0f;
+  return k;
+}
+
+// One bin's 8 channels (base points at the first): the s*s samples'
+// corners as 16-byte loads, all independent (kS > 0: s = kS, unrolled).
+template <typename T, int kS>
+__device__ __forceinline__ void bin_vec(const T* __restrict__ base, int W,
+                                        int C, const Sample* ys,
+                                        const Sample* xs, int s, float vw,
+                                        float* acc) {
+  const int ns = kS > 0 ? kS : s;
+#pragma unroll
+  for (int iy = 0; iy < ns; ++iy) {
+#pragma unroll
+    for (int ix = 0; ix < ns; ++ix) {
+      const Corners k = corners(ys[iy], xs[ix], W, C, vw);
+      Chunk<T> v00, v01, v10, v11;
+      v00.load(base + k.c00);
+      v01.load(base + k.c01);
+      v10.load(base + k.c10);
+      v11.load(base + k.c11);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float v = v00.at(i) * k.w00;
+        v += v01.at(i) * k.w01;
+        v += v10.at(i) * k.w10;
+        v += v11.at(i) * k.w11;
+        acc[i] += v;
+      }
+    }
+  }
+}
+
+// The same sum one value at a time, for the first nch channels.
 template <typename T>
-__global__ void roi_align_fwd_kernel(LevelTable lv, int n_levels,
-                                     const float* __restrict__ rois,
-                                     const int* __restrict__ levels,
-                                     const int* __restrict__ slabs,
-                                     int n_slabs, T* __restrict__ out, int K,
-                                     int C, int P, int s) {
+__device__ __forceinline__ void bin_scalar(const T* __restrict__ base, int W,
+                                           int C, const Sample* ys,
+                                           const Sample* xs, int s, float vw,
+                                           int nch, float* acc) {
+  for (int iy = 0; iy < s; ++iy) {
+    for (int ix = 0; ix < s; ++ix) {
+      const Corners k = corners(ys[iy], xs[ix], W, C, vw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i < nch) {
+          float v = to_float(__ldg(base + k.c00 + i)) * k.w00;
+          v += to_float(__ldg(base + k.c01 + i)) * k.w01;
+          v += to_float(__ldg(base + k.c10 + i)) * k.w10;
+          v += to_float(__ldg(base + k.c11 + i)) * k.w11;
+          acc[i] += v;
+        }
+      }
+    }
+  }
+}
+
+constexpr int kFwdThreads = 224;   // 7 warps
+
+// Forward. slabs == nullptr: roi n pools from slab n / K (K1's slab-grouped
+// layout); otherwise from slabs[n] (K3). levels == nullptr: level 0. Block
+// (n, j) computes bins [j * bins_per_block, ...) of roi n; vec: every map
+// and the output are 16-byte aligned and C % 8 == 0.
+template <typename T, int kS>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+roi_align_fwd_kernel(LevelTable lv, int n_levels,
+                     const float* __restrict__ rois,
+                     const int* __restrict__ levels,
+                     const int* __restrict__ slabs, int n_slabs,
+                     T* __restrict__ out, int K, int C, int P, int s,
+                     int bins_per_block, bool vec) {
   __shared__ Sample xs[kMaxSamples];
   __shared__ Sample ys[kMaxSamples];
   const int n = blockIdx.x;
-  const int ph = blockIdx.y;
   const RoiGeometry g = roi_row_samples(lv, n_levels, rois, levels, slabs,
-                                        n_slabs, n, K, P, s, ph, xs, ys);
+                                        n_slabs, n, K, P, s, 0, P, xs, ys);
   __syncthreads();
 
   const int W = g.W;
   const T* base = static_cast<const T*>(lv.ptr[g.lvl]) +
                   static_cast<size_t>(g.slab) * g.H * W * C;
-  T* o = out + (static_cast<size_t>(n) * P + ph) * P * C;
+  T* o = out + static_cast<size_t>(n) * P * P * C;
   const float vw = 1.0f / static_cast<float>(s * s);
+  const int groups = (C + 7) / 8;
+  const int bin0 = blockIdx.y * bins_per_block;
+  const int items = (min(bin0 + bins_per_block, P * P) - bin0) * groups;
 
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    for (int pw = 0; pw < P; ++pw) {
-      float acc = 0.0f;
-      for (int iy = 0; iy < s; ++iy) {
-        const Sample y = ys[iy];
-        if (!y.valid) continue;
-        const T* r0 = base + static_cast<size_t>(y.lo) * W * C + c;
-        const T* r1 = base + static_cast<size_t>(y.hi) * W * C + c;
-        for (int ix = 0; ix < s; ++ix) {
-          const Sample x = xs[pw * s + ix];
-          if (!x.valid) continue;
-          const size_t xl = static_cast<size_t>(x.lo) * C;
-          const size_t xh = static_cast<size_t>(x.hi) * C;
-          float v = to_float(__ldg(r0 + xl)) * (y.wlo * x.wlo * vw);
-          v += to_float(__ldg(r0 + xh)) * (y.wlo * x.whi * vw);
-          v += to_float(__ldg(r1 + xl)) * (y.whi * x.wlo * vw);
-          v += to_float(__ldg(r1 + xh)) * (y.whi * x.whi * vw);
-          acc += v;
-        }
-      }
-      o[pw * C + c] = from_float<T>(acc);
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int b = item / groups;
+    const int c0 = 8 * (item - b * groups);
+    const int bin = bin0 + b;
+    const int ph = bin / P;
+    const int pw = bin - ph * P;
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
+    T* dst = o + static_cast<size_t>(bin) * C + c0;
+    if (vec) {
+      bin_vec<T, kS>(base + c0, W, C, ys + ph * s, xs + pw * s, s, vw, acc);
+      store8(dst, acc);
+    } else {
+      const int nch = min(8, C - c0);
+      bin_scalar<T>(base + c0, W, C, ys + ph * s, xs + pw * s, s, vw, nch,
+                    acc);
+      for (int i = 0; i < nch; ++i) dst[i] = from_float<T>(acc[i]);
     }
   }
 }
@@ -215,7 +350,7 @@ __global__ void roi_align_bwd_kernel(LevelTable lv, int n_levels,
   const int n = blockIdx.x;
   const int ph = blockIdx.y;
   const RoiGeometry g = roi_row_samples(lv, n_levels, rois, levels, slabs,
-                                        n_slabs, n, K, P, s, ph, xs, ys);
+                                        n_slabs, n, K, P, s, ph, 1, xs, ys);
   __syncthreads();
   if (threadIdx.x == 0) {
     // Distinct y rows of the bin row's taps, each with its summed weight
@@ -313,6 +448,29 @@ bool bad_args(int n_levels, int C, int P, int s, int dtype) {
 
 int threads_for(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
 
+template <typename T, int kS>
+void launch_fwd(dim3 grid, int threads, cudaStream_t st, const LevelTable& lv,
+                int n_levels, const float* r, const int* l, const int* sl,
+                int n_slabs, void* out, int K, int C, int P, int s, int bpb,
+                bool vec) {
+  roi_align_fwd_kernel<T, kS><<<grid, threads, 0, st>>>(
+      lv, n_levels, r, l, sl, n_slabs, static_cast<T*>(out), K, C, P, s, bpb,
+      vec);
+}
+
+template <typename T>
+void launch_fwd_s(dim3 grid, int threads, cudaStream_t st,
+                  const LevelTable& lv, int n_levels, const float* r,
+                  const int* l, const int* sl, int n_slabs, void* out, int K,
+                  int C, int P, int s, int bpb, bool vec) {
+  if (s == 2)
+    launch_fwd<T, 2>(grid, threads, st, lv, n_levels, r, l, sl, n_slabs, out,
+                     K, C, P, s, bpb, vec);
+  else
+    launch_fwd<T, 0>(grid, threads, st, lv, n_levels, r, l, sl, n_slabs, out,
+                     K, C, P, s, bpb, vec);
+}
+
 int launch_forward(const void* level_ptrs, const void* hs, const void* ws,
                    const void* scales, int n_levels, const void* rois,
                    const void* levels, const void* slabs, int n_slabs,
@@ -323,21 +481,36 @@ int launch_forward(const void* level_ptrs, const void* hs, const void* ws,
   if (N == 0) return 0;
   LevelTable lv;
   make_table(level_ptrs, hs, ws, scales, n_levels, &lv);
-  const dim3 grid(N, P);
-  const int threads = threads_for(C);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Few rois (the keypoint stage): split each roi's bins over blocks, so
+  // that about 8 blocks per SM are in flight.
+  const int bins = P * P;
+  const long long want = 8LL * sms;
+  int split = N >= want ? 1
+                        : static_cast<int>(std::min<long long>(
+                              bins, (want + N - 1) / N));
+  const int bpb = (bins + split - 1) / split;
+  split = (bins + bpb - 1) / bpb;
+  const int groups = (C + 7) / 8;
+  const int threads = std::min(kFwdThreads, ((bpb * groups + 31) / 32) * 32);
+  bool vec = C % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int i = 0; i < n_levels; ++i)
+    vec = vec && reinterpret_cast<uintptr_t>(lv.ptr[i]) % 16 == 0;
+  const dim3 grid(N, split);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
   const int* l = static_cast<const int*>(levels);
   const int* sl = static_cast<const int*>(slabs);
-  if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, threads, 0, st>>>(
-        lv, n_levels, r, l, sl, n_slabs, static_cast<float*>(out), K, C, P,
-        s);
-  } else {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        lv, n_levels, r, l, sl, n_slabs, static_cast<__nv_bfloat16*>(out), K,
-        C, P, s);
-  }
+  if (dtype == 0)
+    launch_fwd_s<float>(grid, threads, st, lv, n_levels, r, l, sl, n_slabs,
+                        out, K, C, P, s, bpb, vec);
+  else
+    launch_fwd_s<__nv_bfloat16>(grid, threads, st, lv, n_levels, r, l, sl,
+                                n_slabs, out, K, C, P, s, bpb, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

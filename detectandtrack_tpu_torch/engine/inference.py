@@ -3,8 +3,8 @@
 Port of detectandtrack_tpu/engine/inference.py (`make_detect_fn` and
 `make_kps_aug_fns` on one device, `clip_slice`, `detections_to_frames`),
 with the static shapes of the detect outputs (`detect_output_shapes`).
-The per-frame dicts feed `detectandtrack_tpu.tracking.tracker.Tracker.
-update`, reused by import.
+The per-frame dicts feed the port's host tracker,
+`detectandtrack_tpu_torch.tracking.tracker.Tracker.update`.
 """
 
 from __future__ import annotations

@@ -35,10 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from detectandtrack_tpu.ops.anchors import shifted_anchor_field
-
 from ..models.detector import GeneralizedRCNN
 from ..models.rpn import anchor_cell_for_level, flatten_rpn_outputs
+from ..ops.anchors import shifted_anchor_field
 from ..utils.lr_policy import make_schedule
 from ..utils.params import flax_path
 from . import losses as L

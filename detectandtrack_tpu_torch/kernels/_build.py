@@ -1,11 +1,12 @@
-"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+"""Build the package's native sources and bind them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
-use (or by `build`, which runs one nvcc per source in parallel) into
-`_build/<name>-<hash of the source>.so` for `sm_90a`; a changed source gets
-a new file, so a stale library is never loaded. Nothing is
-compiled or loaded at import time: the CPU tests import every module on a
-machine without nvcc.
+Each `csrc/<name>.cu` (a CUDA kernel, nvcc for `sm_90a`) or
+`csrc/<name>.cpp` (host code, g++) exposes a plain C interface and is
+compiled on first use (or by `build`, which runs one compiler per source in
+parallel) into `_build/<name>-<hash of the source>.so`; a changed source
+gets a new file, so a stale library is never loaded. Nothing is compiled or
+loaded at import time: the CPU tests import every module on a machine
+without nvcc.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -40,16 +42,35 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ at first use")
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the host sources in csrc/ "
+                           "are built at first use")
+    return gxx
+
+
+def _source(name: str) -> str:
+    cu = os.path.join(CSRC_DIR, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC_DIR, f"{name}.cpp")
+
+
+def _compile_cmd(src: str) -> list:
+    if src.endswith(".cu"):
+        return [_nvcc(), *NVCC_FLAGS]
+    return [_gxx(), *GXX_FLAGS]
+
+
 def _so_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    src = _source(name)
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
 def build(names: Sequence[str]) -> None:
-    """Compile every missing `csrc/<name>.cu`, one nvcc each, all started
-    together; raise if any fails."""
+    """Compile every missing `csrc/<name>.cu` or `.cpp`, one compiler each,
+    all started together; raise if any fails."""
     procs = []
     for name in names:
         so = _so_path(name)
@@ -57,15 +78,16 @@ def build(names: Sequence[str]) -> None:
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
+        src = _source(name)
         procs.append((name, src, so, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            [*_compile_cmd(src), "-o", tmp, src], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
     failed = []
     for name, src, so, tmp, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {src}:\n{err}")
+            failed.append(f"{os.path.basename(proc.args[0])} failed for "
+                          f"{src}:\n{err}")
             continue
         os.replace(tmp, so)
         build_logs[name] = err
@@ -74,14 +96,16 @@ def build(names: Sequence[str]) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` if needed and return the loaded library."""
+    """Compile `csrc/<name>.cu` or `.cpp` if needed and return the loaded
+    library."""
     with _lock:
         if name in _libs:
             return _libs[name]
         build([name])
         lib = ctypes.CDLL(_so_path(name))
-        lib.dat_error_string.argtypes = [ctypes.c_int]
-        lib.dat_error_string.restype = ctypes.c_char_p
+        if _source(name).endswith(".cu"):
+            lib.dat_error_string.argtypes = [ctypes.c_int]
+            lib.dat_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
 

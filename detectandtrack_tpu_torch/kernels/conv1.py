@@ -1,11 +1,17 @@
 """conv1 (7x7, stride 2, pad 3, t temporal taps) on 3-channel clips.
 
-Port of detectandtrack_tpu/kernels/conv1.py: `conv1` launches the CUDA
-kernel in `csrc/conv1.cu` for a CUDA tensor and runs the plain PyTorch
-version, `conv1_reference`, for a CPU tensor. `conv1_autograd` adds the
-gradient to x and the weights, taken from the plain conv's autograd
-(cuDNN on the card), as the JAX package's `_conv1_bwd` takes the vjp of
-`_conv1_reference`.
+Port of detectandtrack_tpu/kernels/conv1.py: `conv1` runs the plain
+PyTorch version, `conv1_reference`, for a CPU tensor; for a CUDA tensor it
+dispatches by dtype to one of the two kernels in `csrc/conv1.cu`, or
+raises: bf16 to the tensor-core implicit GEMM (`conv1_tc`, whose weight
+layout `conv1_tc_weights` prepares), f32 to the CUDA-core direct
+convolution (`conv1_cuda_core`; TF32 tensor cores would miss the f32
+parity bound). `conv1_autograd` adds the gradient to x and the weights,
+taken from the plain conv's autograd (cuDNN on the card), as the JAX
+package's `_conv1_bwd` takes the vjp of `_conv1_reference`.
+
+Launch counts: `conv1.launches` (either kernel), `conv1.launches_tc` and
+`conv1.launches_cc` (each kernel's own).
 """
 
 from __future__ import annotations
@@ -35,6 +41,20 @@ def conv1_reference(x: torch.Tensor, k7: torch.Tensor, t: int,
     return y.permute(0, 2, 3, 4, 1)
 
 
+TC_SLOTS = 24     # K slots per (kt, ky) group of the tensor-core kernel
+
+
+def conv1_tc_weights(k7: torch.Tensor) -> torch.Tensor:
+    """k7 (t, 7, 7, 3, 64) → the tensor-core kernel's (64, 24·7·t) weight
+    matrix, K contiguous, in k7's dtype. K runs over (kt, ky, slot): slot s
+    of a (kt, ky) group holds (kx, ci) = divmod(s - 1, 3) for s in 1..21;
+    slots 0, 22 and 23 are zero (the kernel reads the value before a
+    pixel's run in slot 0, so every bf16 pair it loads is aligned)."""
+    t = k7.shape[0]
+    w = F.pad(k7.reshape(t, 7, 21, 64), (0, 0, 1, TC_SLOTS - 22))
+    return w.reshape(t * 7 * TC_SLOTS, 64).t().contiguous()
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("conv1")
@@ -43,20 +63,15 @@ def _lib() -> ctypes.CDLL:
     lib.dat_conv1.restype = ctypes.c_int
     lib.dat_conv1_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.dat_conv1_smem_bytes.restype = ctypes.c_longlong
+    lib.dat_conv1_tc.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                                 + [ctypes.c_void_p])
+    lib.dat_conv1_tc.restype = ctypes.c_int
+    lib.dat_conv1_tc_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dat_conv1_tc_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def conv1(x: torch.Tensor, k7: torch.Tensor, t: int,
-          dtype: torch.dtype) -> torch.Tensor:
-    """conv1 of the inflated ResNet → (B, T, ceil(H/2), ceil(W/2), 64).
-
-    A CPU tensor runs `conv1_reference`; a CUDA tensor launches the kernel
-    (x and k7 are cast to `dtype`, f32 or bf16; f32 accumulation) or raises.
-    """
-    if not x.is_cuda:
-        return conv1_reference(x, k7, t, dtype)
-    if dtype not in _DTYPES:
-        raise TypeError(f"conv1 kernel: dtype {dtype} (f32 or bf16 only)")
+def _check_args(x: torch.Tensor, k7: torch.Tensor, t: int) -> None:
     if x.dim() != 5 or x.shape[-1] != 3:
         raise ValueError(f"conv1 kernel: x must be (B, T, H, W, 3), got "
                          f"{tuple(x.shape)}")
@@ -65,29 +80,89 @@ def conv1(x: torch.Tensor, k7: torch.Tensor, t: int,
                          f"got {tuple(k7.shape)}")
     if k7.device != x.device:
         raise ValueError("conv1 kernel: x and weights on different devices")
+    if x.shape[0] * x.shape[1] > 65535:
+        raise ValueError("conv1 kernel: B*T must be <= 65535")
+
+
+def _out(x: torch.Tensor, w: int, dtype: torch.dtype) -> torch.Tensor:
+    b, nt, h = x.shape[:3]
+    return torch.empty((b, nt, (h + 1) // 2, (w + 1) // 2, 64), dtype=dtype,
+                       device=x.device)
+
+
+def conv1_cuda_core(x: torch.Tensor, k7: torch.Tensor, t: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The CUDA-core kernel (f32 FMAs; `dtype` f32 or bf16) on CUDA
+    tensors: `conv1`'s f32 route."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"conv1 kernel: dtype {dtype} (f32 or bf16 only)")
+    _check_args(x, k7, t)
     x = x.to(dtype).contiguous()
     k7 = k7.to(dtype).contiguous()
     if k7.data_ptr() % 16:
         raise ValueError("conv1 kernel: weights must be 16-byte aligned")
-    b, nt, h, w, _ = x.shape
-    if b * nt > 65535:
-        raise ValueError("conv1 kernel: B*T must be <= 65535")
     lib = _lib()
     if lib.dat_conv1_smem_bytes(t, _DTYPES[dtype]) > _SMEM_LIMIT:
         raise ValueError(f"conv1 kernel: t={t} weights do not fit shared "
                          f"memory in {dtype}")
-    out = torch.empty((b, nt, (h + 1) // 2, (w + 1) // 2, 64), dtype=dtype,
-                      device=x.device)
+    b, nt, h, w, _ = x.shape
+    out = _out(x, w, dtype)
     with torch.cuda.device(x.device):
         err = lib.dat_conv1(x.data_ptr(), k7.data_ptr(), out.data_ptr(), b,
                             nt, h, w, t, _DTYPES[dtype],
                             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "conv1 kernel launch")
     conv1.launches += 1
+    conv1.launches_cc += 1
     return out
 
 
+def conv1_tc(x: torch.Tensor, k7: torch.Tensor, t: int) -> torch.Tensor:
+    """The bf16 tensor-core kernel on CUDA tensors: `conv1`'s bf16 route.
+    A clip width that is not a multiple of 8 gets zero columns on the
+    right (exact: the conv pads with zeros there)."""
+    _check_args(x, k7, t)
+    lib = _lib()
+    if lib.dat_conv1_tc_smem_bytes(t) > _SMEM_LIMIT:
+        raise ValueError(f"conv1 tensor-core kernel: t={t} weights do not "
+                         "fit shared memory")
+    b, nt, h, w, _ = x.shape
+    x = x.to(torch.bfloat16)
+    if w % 8:
+        x = F.pad(x, (0, 0, 0, 8 - w % 8))
+    x = x.contiguous()
+    wk = conv1_tc_weights(k7.to(torch.bfloat16))
+    out = _out(x, w, torch.bfloat16)
+    with torch.cuda.device(x.device):
+        err = lib.dat_conv1_tc(x.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                               b, nt, h, x.shape[3], (w + 1) // 2, t,
+                               torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "conv1 tensor-core kernel launch")
+    conv1.launches += 1
+    conv1.launches_tc += 1
+    return out
+
+
+def conv1(x: torch.Tensor, k7: torch.Tensor, t: int,
+          dtype: torch.dtype) -> torch.Tensor:
+    """conv1 of the inflated ResNet → (B, T, ceil(H/2), ceil(W/2), 64).
+
+    A CPU tensor runs `conv1_reference`. A CUDA tensor launches a kernel by
+    `dtype` (x and k7 are cast to it; f32 accumulation): bf16 the
+    tensor-core kernel, f32 the CUDA-core kernel; any other dtype raises.
+    """
+    if not x.is_cuda:
+        return conv1_reference(x, k7, t, dtype)
+    if dtype == torch.bfloat16:
+        return conv1_tc(x, k7, t)
+    if dtype == torch.float32:
+        return conv1_cuda_core(x, k7, t, dtype)
+    raise TypeError(f"conv1 kernel: dtype {dtype} (f32 or bf16 only)")
+
+
 conv1.launches = 0
+conv1.launches_tc = 0
+conv1.launches_cc = 0
 
 
 def conv1_backward(x: torch.Tensor, k7: torch.Tensor, t: int,

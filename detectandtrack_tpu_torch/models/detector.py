@@ -24,11 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from detectandtrack_tpu.ops.anchors import shifted_anchor_field
-
 from ..kernels.roi_align import (assign_fpn_levels,
                                  roi_align_multilevel_autograd)
 from ..ops import boxes as box_ops
+from ..ops.anchors import shifted_anchor_field
 from ..ops.keypoints import flip_permutation, heatmaps_to_keypoints
 from ..ops.nms import nms_fixed, soft_nms_fixed
 from .backbone import BASIC_ARCHS, backbone_from_cfg, compute_dtype
@@ -528,11 +527,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             m.init_parameters(generator)
 
 
-def build_model(cfg, device="cpu", seed: int = 0,
+def build_model(cfg, device="cuda", seed: int = 0,
                 train: bool = False) -> GeneralizedRCNN:
-    """The port's GeneralizedRCNN for `cfg`, initialized from `seed` on the
-    CPU and moved to `device` ("meta" builds it without storage), in eval
-    mode or, with `train`, in train mode for `engine.train`."""
+    """The port's GeneralizedRCNN for `cfg` (from the port's
+    `core.config.load_cfg`), initialized from `seed` on the CPU and moved to
+    `device`: the CUDA card unless the caller passes "cpu" ("meta" builds
+    it without storage); in eval mode or, with `train`, in train mode for
+    `engine.train`."""
     if cfg.MODEL.TYPE != "generalized_rcnn":
         raise ValueError(f"Unknown MODEL.TYPE {cfg.MODEL.TYPE!r}")
     with torch.device("meta"):

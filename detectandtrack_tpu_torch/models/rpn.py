@@ -1,7 +1,6 @@
 """Tube-RPN head and fixed-budget proposal helpers (port of
-detectandtrack_tpu/models/rpn.py). Anchors come from the JAX package's
-numpy module `detectandtrack_tpu.ops.anchors`, reused by import (it imports
-no JAX)."""
+detectandtrack_tpu/models/rpn.py). Anchors come from the port's numpy
+module `ops/anchors.py`."""
 
 from __future__ import annotations
 
@@ -12,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import boxes as box_ops
+from ..ops.anchors import generate_anchors
 from .backbone import Conv3d
 
 
@@ -72,8 +72,6 @@ def center_frame_box(tubes: torch.Tensor, num_frames: int) -> torch.Tensor:
 def anchor_cell_for_level(cfg, level_index: int, stride: int):
     """Per-level anchor cell: one RPN.SIZES entry per FPN level, or the
     whole RPN.SIZES set on the single C4 level."""
-    from detectandtrack_tpu.ops.anchors import generate_anchors
-
     sizes = ([cfg.RPN.SIZES[level_index]] if cfg.FPN.FPN_ON
              else cfg.RPN.SIZES)
     return generate_anchors(stride, sizes, cfg.RPN.ASPECT_RATIOS)

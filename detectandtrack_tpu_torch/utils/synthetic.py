@@ -1,6 +1,7 @@
-"""Seeded synthetic batches in the train-step contract (numpy), for smoke
-runs and tests. The GT tubes come from the caller, e.g.
-`bench.make_realistic_tubes`."""
+"""Seeded synthetic inputs (numpy) for smoke runs and tests: person-shaped
+proposal tubes over the FPN levels (`make_realistic_tubes`, a copy of the
+JAX package's `bench.make_realistic_tubes`) and batches in the train-step
+contract (`train_batch`)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,40 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 NUM_KEYPOINTS = 15      # PoseTrack's joints
+
+# Realistic FPN level mix for person boxes at the 800-px eval scale:
+# (sqrt-area band, fraction). Bands follow assign_fpn_levels with
+# canonical (224, lvl 4) over ROI levels P2..P5.
+_LEVEL_BANDS = [((32.0, 112.0), 0.35), ((112.0, 224.0), 0.35),
+                ((224.0, 448.0), 0.20), ((448.0, 720.0), 0.10)]
+
+
+def make_realistic_tubes(batch: int, k: int, t: int, im_h: int, im_w: int,
+                         seed: int = 0) -> np.ndarray:
+    """Deterministic person-shaped proposal tubes (B, K, 4T) spanning the
+    FPN levels with the documented fractions; small per-frame drift makes
+    them genuine tubes."""
+    rng = np.random.default_rng(seed)
+    counts = [int(round(f * k)) for _, f in _LEVEL_BANDS]
+    counts[0] += k - sum(counts)
+    sa = np.concatenate([rng.uniform(lo, hi, size=(batch, c))
+                         for ((lo, hi), _), c in zip(_LEVEL_BANDS, counts)
+                         if c > 0], axis=1)                  # (B, K)
+    aspect = rng.uniform(0.33, 0.8, size=sa.shape)           # w/h: tall
+    h = sa / np.sqrt(aspect)
+    w = sa * np.sqrt(aspect)
+    cx = rng.uniform(0.0, im_w, size=sa.shape)
+    cy = rng.uniform(0.0, im_h, size=sa.shape)
+    drift = rng.normal(scale=3.0, size=(batch, k, t, 2))
+    boxes = np.stack([
+        cx[..., None] + drift[..., 0] - w[..., None] / 2,
+        cy[..., None] + drift[..., 1] - h[..., None] / 2,
+        cx[..., None] + drift[..., 0] + w[..., None] / 2,
+        cy[..., None] + drift[..., 1] + h[..., None] / 2,
+    ], axis=-1)                                              # (B, K, T, 4)
+    boxes[..., 0::2] = boxes[..., 0::2].clip(0, im_w - 1)
+    boxes[..., 1::2] = boxes[..., 1::2].clip(0, im_h - 1)
+    return boxes.reshape(batch, k, 4 * t).astype(np.float32)
 
 
 def train_batch(rng: np.random.Generator, tubes: np.ndarray,

@@ -24,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from detectandtrack_tpu.core.config import load_cfg
 from detectandtrack_tpu.models.detector import GeneralizedRCNN
+from detectandtrack_tpu_torch.core.config import load_cfg
 from detectandtrack_tpu_torch.engine.inference import (
     detect_output_shapes, detect_outputs, make_detect_fn)
 from detectandtrack_tpu_torch.models.detector import build_model
@@ -85,7 +85,7 @@ def check_config(name):
             lambda p, c: jm.apply(p, c, method=method))(params,
                                                        jnp.asarray(clip))
     else:
-        tm = build_model(cfg)
+        tm = build_model(cfg, device="cpu")
         tm.load_state_dict(jax_params_to_state_dict(_JAX_RUNS[key][0], tm))
     jout = _JAX_RUNS[key][1]
     with torch.no_grad():

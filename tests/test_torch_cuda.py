@@ -13,7 +13,8 @@ import torch
 
 from detectandtrack_tpu_torch.kernels import roi_align as ra
 from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_autograd,
-                                                    conv1_reference)
+                                                    conv1_cuda_core,
+                                                    conv1_reference, conv1_tc)
 from detectandtrack_tpu_torch.kernels.roi_align import (
     roi_align_multilevel, roi_align_multilevel_reference)
 
@@ -43,9 +44,11 @@ def test_conv1_kernel_matches_plain(cuda, dtype, t, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen)
     k7 = torch.randn((t, 7, 7, 3, 64), device=cuda, generator=gen) * 0.05
-    before = conv1.launches
+    before = (conv1.launches, conv1.launches_tc, conv1.launches_cc)
     got = conv1(x, k7, t, dtype)
-    assert conv1.launches == before + 1
+    tc = dtype == torch.bfloat16
+    assert (conv1.launches, conv1.launches_tc, conv1.launches_cc) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
     ref = conv1_reference(x, k7, t, dtype)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == ref.shape
@@ -74,6 +77,62 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, p):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (3, 9, p, p, 40)
     assert (got.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+
+
+@pytest.mark.parametrize("t,shape", [(3, (1, 2, 33, 35, 3)),
+                                     (1, (2, 3, 17, 19, 3)),
+                                     (3, (1, 4, 130, 140, 3)),
+                                     (1, (1, 1, 1, 1, 3)),
+                                     (3, (1, 2, 7, 8, 3))])
+def test_conv1_tc_kernel_matches_plain_at_odd_sizes(cuda, t, shape):
+    """The bf16 tensor-core kernel on its own: odd H and W (its W is padded
+    to a multiple of 8), ragged tiles in both directions, t = 1 and 3;
+    and the CUDA-core kernel on the same bf16 input."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    k7 = (torch.randn((t, 7, 7, 3, 64), device=cuda, generator=gen)
+          * 0.05).to(torch.bfloat16)
+    ref = conv1_reference(x, k7, t, torch.bfloat16)
+    before = conv1.launches_tc
+    got = conv1_tc(x, k7, t)
+    assert conv1.launches_tc == before + 1
+    cc = conv1_cuda_core(x, k7, t, torch.bfloat16)
+    torch.cuda.synchronize()
+    for out in (got, cc):
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max().item() <= _tol(
+            ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_conv1_raises_on_unsupported_dtype(cuda, dtype):
+    x = torch.zeros((1, 1, 8, 8, 3), device=cuda)
+    k7 = torch.zeros((1, 7, 7, 3, 64), device=cuda)
+    before = conv1.launches
+    with pytest.raises(TypeError):
+        conv1(x, k7, 1, dtype)
+    assert conv1.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [41, 12, 3])
+def test_roi_align_kernel_channels_not_a_multiple_of_8(cuda, dtype, c):
+    """K1 loads channel by channel where C % 8 != 0, in the same kernel."""
+    rng = np.random.default_rng(8)
+    feats = _maps(rng, cuda, dtype, c=c)
+    rois = _pair_rois(rng, cuda, 27).reshape(3, 9, 4).contiguous()
+    levels = torch.from_numpy(rng.integers(0, 3, (3, 9)).astype(
+        np.int32)).to(cuda)
+    for p in (7, 14):
+        before = roi_align_multilevel.launches
+        got = roi_align_multilevel(feats, [4, 8, 16], rois, levels, p, 2)
+        assert roi_align_multilevel.launches == before + 1
+        ref = roi_align_multilevel_reference(feats, [4, 8, 16], rois, levels,
+                                             p, 2)
+        torch.cuda.synchronize()
+        assert got.shape == (3, 9, p, p, c)
+        assert (got.float() - ref.float()).abs().max().item() <= _tol(
+            ref, dtype)
 
 
 def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
@@ -201,11 +260,11 @@ def test_box_loss_gradient_reaches_fpn_and_backbone_on_card(cuda):
     are only required to be nonzero: cuDNN's and the CPU's convolution
     backward part there by up to 3% of a gradient's largest entry (res3),
     with the pyramid gradients that feed them equal to 4e-6."""
-    from bench import make_realistic_tubes
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.train import (generator_draws,
                                                         train_forward)
     from detectandtrack_tpu_torch.models.detector import build_model
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
     cfg = load_cfg(opts=[
         "MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
         "VIDEO.VIDEO_ON", True, "VIDEO.NUM_FRAMES", 2,

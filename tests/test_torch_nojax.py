@@ -1,19 +1,31 @@
-"""The port runs where JAX is not installed (the GPU machine): every module
-of detectandtrack_tpu_torch imports, the slice runs detect → track, and one
-training step of the small model runs on the CPU, in a process where
-`import jax` / `import flax` fail."""
+"""The port stands alone where JAX is not installed (the GPU machine):
+every module of detectandtrack_tpu_torch imports, the slice runs detect →
+track, and one training step of the small model runs on the CPU, in a
+process where `import jax`, `import flax`, `import detectandtrack_tpu` (the
+JAX package) and `import bench` all fail. No source file of the port and
+no line of chip_smoke.py imports the JAX package or `bench`."""
 
+import ast
+import glob
 import os
 import shutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_BLOCK_JAX = """
+_BLOCKED = ("jax", "jaxlib", "flax", "detectandtrack_tpu", "bench")
+_BLOCK_JAX = f"""
 import sys
-for name in ("jax", "jaxlib", "flax"):
+for name in {_BLOCKED!r}:
     sys.modules[name] = None
+"""
+_NOTHING_BLOCKED_LOADED = f"""
+loaded = [m for m in sys.modules if m.split(".")[0] in {_BLOCKED!r}
+          and sys.modules[m] is not None]
+assert not loaded, loaded
 """
 
 _SLICE = _BLOCK_JAX + """
@@ -23,8 +35,8 @@ import detectandtrack_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
-from detectandtrack_tpu.core.config import load_cfg
-from detectandtrack_tpu.tracking.tracker import Tracker, TrackerConfig
+from detectandtrack_tpu_torch.core.config import load_cfg
+from detectandtrack_tpu_torch.tracking.tracker import Tracker, TrackerConfig
 from detectandtrack_tpu_torch.engine.inference import (
     clip_slice, detections_to_frames, make_detect_fn)
 from detectandtrack_tpu_torch.models.detector import build_model
@@ -36,7 +48,7 @@ cfg = load_cfg(opts=[
     "TEST.DETECTIONS_PER_IM", 4, "TEST.SCORE_THRESH", -1.0,
     "TEST.SHAPE_BUCKETS", "[[64, 96]]",
     "KRCNN.NUM_STACKED_CONVS", 2, "KRCNN.CONV_HEAD_DIM", 32])
-model = build_model(cfg, seed=0)
+model = build_model(cfg, device="cpu", seed=0)
 clip = torch.from_numpy(np.random.default_rng(0).normal(
     size=(1, 2, 64, 96, 3)).astype(np.float32))
 det = make_detect_fn(model)(clip)
@@ -59,7 +71,7 @@ tcfg = load_cfg(opts=[
     "RPN.BATCH_SIZE_PER_IM", 32, "FAST_RCNN.BATCH_SIZE_PER_IM", 32,
     "KRCNN.NUM_STACKED_CONVS", 2, "KRCNN.CONV_HEAD_DIM", 32,
     "SOLVER.CLIP_GRAD_NORM", 10.0])
-tmodel = build_model(tcfg, seed=0, train=True)
+tmodel = build_model(tcfg, device="cpu", seed=0, train=True)
 state = create_train_state(tcfg, tmodel)
 gt = torch.tensor([[[10.0, 8.0, 50.0, 60.0, 12.0, 8.0, 52.0, 61.0]]])
 batch = {"clips": clip, "gt_boxes": gt,
@@ -70,17 +82,14 @@ state, metrics = make_train_step(tmodel, tcfg)(state, batch)
 assert state.step == 1 and set(metrics) >= {"loss_total", "loss_kps"}
 assert all(torch.isfinite(v) for v in metrics.values())
 assert any(not torch.equal(before[k], p) for k, p in state.params.items())
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
-          "flax") and sys.modules[m] is not None]
-assert not loaded, loaded
-print("modules", len(mods))
+""" + _NOTHING_BLOCKED_LOADED + """print("modules", len(mods))
 """
 
 
 _SURFACE = _BLOCK_JAX + """
 import numpy as np, torch
-from detectandtrack_tpu.core.config import load_cfg
-from detectandtrack_tpu.tracking.tracker import Tracker, TrackerConfig
+from detectandtrack_tpu_torch.core.config import load_cfg
+from detectandtrack_tpu_torch.tracking.tracker import Tracker, TrackerConfig
 from detectandtrack_tpu_torch.engine.inference import (
     clip_slice, detections_to_frames, make_detect_fn)
 from detectandtrack_tpu_torch.engine.train import (create_train_state,
@@ -98,7 +107,7 @@ small = ["MODEL.CONV_BODY", "resnet18", "RESNETS.WIDTH_PER_GROUP", 8,
          "MRCNN.TRAIN_MAX_ROIS_PER_IM", 8, "KRCNN.TRAIN_MAX_ROIS_PER_IM", 8]
 cfg = load_cfg("configs/video/2d_R50_C4_kps.yaml", opts=small)
 assert not cfg.FPN.FPN_ON and cfg.MODEL.MASK_ON
-model = build_model(cfg, seed=0)
+model = build_model(cfg, device="cpu", seed=0)
 clip = torch.from_numpy(np.random.default_rng(0).normal(
     size=(1, 1, 64, 96, 3)).astype(np.float32))
 det = make_detect_fn(model, flip_tta=True)(clip)
@@ -113,7 +122,7 @@ ids = Tracker(TrackerConfig(score_thresh=0.0)).update(
     frames[0]["features"], frames[0]["valid"])
 assert (ids >= 0).sum() == int(det["valid"].sum())
 tcfg = load_cfg("configs/video/2d_R50_FPN_mask_kps.yaml", opts=small)
-tmodel = build_model(tcfg, seed=0, train=True)
+tmodel = build_model(tcfg, device="cpu", seed=0, train=True)
 state = create_train_state(tcfg, tmodel)
 gt = torch.tensor([[[10.0, 8.0, 50.0, 60.0]]])
 batch = {"clips": clip, "gt_boxes": gt,
@@ -125,10 +134,7 @@ state, metrics = make_train_step(tmodel, tcfg)(state, batch)
 assert set(metrics) >= {"loss_total", "loss_mask", "loss_kps"}
 assert all(torch.isfinite(v) for v in metrics.values())
 assert tmodel.mask_head.conv5_mask.weight.grad.abs().max() > 0
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
-          "flax") and sys.modules[m] is not None]
-assert not loaded, loaded
-print("surface ok")
+""" + _NOTHING_BLOCKED_LOADED + """print("surface ok")
 """
 
 
@@ -166,3 +172,29 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                               timeout=120)
         assert proc.returncode != 0, (cwd, proc.stdout)
         assert '"ok": true' not in proc.stdout
+
+
+def _imports(path):
+    """Every module name an import statement of `path` names."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+_PORT_SOURCES = sorted(
+    os.path.relpath(p, REPO) for p in glob.glob(
+        os.path.join(REPO, "detectandtrack_tpu_torch", "**", "*.py"),
+        recursive=True)) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _PORT_SOURCES)
+def test_port_source_imports_no_jax_package(path):
+    """The port keeps its own copies of what it needs: no import statement
+    in it (or in chip_smoke.py) names the JAX package, `bench` or JAX."""
+    bad = [m for m in _imports(os.path.join(REPO, path))
+           if m.split(".")[0] in _BLOCKED]
+    assert not bad, bad

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detectandtrack_tpu.core.config import load_cfg
 from detectandtrack_tpu.models.detector import build_model as jax_build
 from detectandtrack_tpu_torch.models.detector import build_model
 from detectandtrack_tpu_torch.utils.params import (jax_params_to_state_dict,
                                                    state_dict_to_jax_params)
+from test_torch_slice import both_cfgs
 
 MAIN_CFG = "configs/video/3d_R50_T8_tubes_kps.yaml"
 
@@ -38,8 +38,8 @@ def _fill(shapes, rng):
 def test_bridge_round_trip_covers_main_path_tree():
     """Every leaf of the 3D R-50 T=8 keypoint tree (207 leaves, 157.7 M
     params) maps to one port parameter and back, bit for bit."""
-    cfg = load_cfg(MAIN_CFG)
-    shapes = _jax_tree_shapes(cfg, (1, 8, 64, 64, 3))
+    jcfg, cfg = both_cfgs(MAIN_CFG)
+    shapes = _jax_tree_shapes(jcfg, (1, 8, 64, 64, 3))
     params = _fill(shapes, np.random.default_rng(0))
     leaves = list(_leaves(params["params"]))
     assert len(leaves) == 207
@@ -61,8 +61,8 @@ def test_bridge_round_trip_covers_main_path_tree():
 def test_bridge_layouts():
     """Conv (t,kh,kw,ci,co) → (co,ci,t,kh,kw); Dense transposed; the
     deconv flipped into torch's (ci,co,kh,kw); conv1 kept canonical."""
-    cfg = load_cfg(MAIN_CFG)
-    params = _fill(_jax_tree_shapes(cfg, (1, 8, 64, 64, 3)),
+    jcfg, cfg = both_cfgs(MAIN_CFG)
+    params = _fill(_jax_tree_shapes(jcfg, (1, 8, 64, 64, 3)),
                    np.random.default_rng(1))
     sd = jax_params_to_state_dict(params, build_model(cfg, device="meta"))
     p = params["params"]
@@ -82,12 +82,12 @@ def test_bridge_layouts():
 
 @pytest.mark.parametrize("damage", ["drop", "rename", "reshape"])
 def test_bridge_raises_on_unmapped_or_unset(damage):
-    cfg = load_cfg(opts=["MODEL.CONV_BODY", "resnet18",
-                         "MODEL.COMPUTE_DTYPE", "float32",
-                         "KRCNN.NUM_STACKED_CONVS", 1,
-                         "KRCNN.CONV_HEAD_DIM", 8,
-                         "FAST_RCNN.MLP_HEAD_DIM", 16])
-    params = _fill(_jax_tree_shapes(cfg, (1, 1, 64, 64, 3)),
+    jcfg, cfg = both_cfgs(opts=["MODEL.CONV_BODY", "resnet18",
+                                "MODEL.COMPUTE_DTYPE", "float32",
+                                "KRCNN.NUM_STACKED_CONVS", 1,
+                                "KRCNN.CONV_HEAD_DIM", 8,
+                                "FAST_RCNN.MLP_HEAD_DIM", 16])
+    params = _fill(_jax_tree_shapes(jcfg, (1, 1, 64, 64, 3)),
                    np.random.default_rng(2))
     box = params["params"]["box_head"]
     if damage == "drop":

@@ -9,13 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from detectandtrack_tpu.core.config import load_cfg
 from detectandtrack_tpu.models.detector import GeneralizedRCNN
 from detectandtrack_tpu_torch.models.detector import build_model
 from detectandtrack_tpu_torch.utils.params import (jax_params_to_state_dict,
                                                    state_dict_to_jax_params)
 from test_torch_params import _fill, _jax_tree_shapes, _leaves
-from test_torch_slice import _pair
+from test_torch_slice import _pair, both_cfgs
 
 # config → (flax leaves, parameters, top-level modules)
 TREES = {
@@ -29,9 +28,10 @@ TREES = {
 
 
 def _tree(name, opts=()):
-    cfg = load_cfg(f"configs/video/{name}.yaml", opts=list(opts))
+    """(port config, the JAX model's tree of leaf shapes)."""
+    jcfg, cfg = both_cfgs(f"configs/video/{name}.yaml", opts)
     t = cfg.VIDEO.NUM_FRAMES if cfg.VIDEO.VIDEO_ON else 1
-    return cfg, _jax_tree_shapes(cfg, (1, t, 64, 64, 3))
+    return cfg, _jax_tree_shapes(jcfg, (1, t, 64, 64, 3))
 
 
 @pytest.mark.parametrize("name", sorted(TREES))

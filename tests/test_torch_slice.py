@@ -10,15 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from bench import make_realistic_tubes
-from detectandtrack_tpu.core.config import load_cfg
+from detectandtrack_tpu.core.config import load_cfg as jax_load_cfg
 from detectandtrack_tpu.engine import inference as jinf
 from detectandtrack_tpu.models.detector import GeneralizedRCNN
 from detectandtrack_tpu.models.detector import build_model as jax_build
-from detectandtrack_tpu.tracking.tracker import Tracker, TrackerConfig
+from detectandtrack_tpu_torch.core.config import load_cfg
 from detectandtrack_tpu_torch.engine import inference as tinf
 from detectandtrack_tpu_torch.models.detector import build_model
+from detectandtrack_tpu_torch.tracking.tracker import Tracker, TrackerConfig
 from detectandtrack_tpu_torch.utils.params import jax_params_to_state_dict
+from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
 
 # tests/test_golden.py's model: R-18, T=2, 64x96, f32.
 GOLDEN_OPTS = [
@@ -57,16 +58,24 @@ def _random_params(shapes, rng, path=()):
     return v.astype(np.float32)
 
 
+def both_cfgs(yaml_path=None, opts=()):
+    """(JAX config, port config): each package's own `load_cfg` on the
+    same YAML and opts."""
+    return (jax_load_cfg(yaml_path, opts=list(opts)),
+            load_cfg(yaml_path, opts=list(opts)))
+
+
 def _pair(yaml_path, opts, clip_shape, seed=0):
-    """(cfg, jax model, jax params, port model with the same weights)."""
-    cfg = load_cfg(yaml_path, opts=list(opts))
-    jm = jax_build(cfg)
+    """(port cfg, jax model, jax params, port model with the same
+    weights); the JAX model is built from the JAX package's config."""
+    jcfg, cfg = both_cfgs(yaml_path, opts)
+    jm = jax_build(jcfg)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                             jnp.zeros(clip_shape, jnp.float32))
     shapes = jax.tree.map(lambda s: tuple(s.shape), shapes,
                           is_leaf=lambda s: hasattr(s, "shape"))
     params = _random_params(shapes, np.random.default_rng(seed))
-    tm = build_model(cfg)
+    tm = build_model(cfg, device="cpu")
     tm.load_state_dict(jax_params_to_state_dict(params, tm))
     return cfg, jm, params, tm
 

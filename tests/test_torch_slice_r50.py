@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from bench import make_realistic_tubes
 from detectandtrack_tpu.models.detector import GeneralizedRCNN
+from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
 from test_torch_slice import _compare_outputs, _pair
 
 MAIN_CFG = "configs/video/3d_R50_T8_tubes_kps.yaml"

@@ -17,7 +17,6 @@ import pytest
 import torch
 from flax import linen as fnn
 
-from detectandtrack_tpu.core.config import load_cfg
 from detectandtrack_tpu.engine import losses as jlosses
 from detectandtrack_tpu.engine import targets as jtargets
 from detectandtrack_tpu.models import heads as jheads
@@ -33,6 +32,7 @@ from detectandtrack_tpu_torch.ops import nms as tnms
 from detectandtrack_tpu_torch.utils.params import (_to_port,
                                                    jax_params_to_state_dict,
                                                    state_dict_to_jax_params)
+from test_torch_slice import both_cfgs
 from test_torch_slice import _random_params
 
 
@@ -101,9 +101,9 @@ def test_finalize_detections_matches_jax(case):
     candidates with ties, invalid rows and clusters: soft-NMS's decayed
     scores, box voting over the valid pre-NMS candidates, the fc7 rows
     gathered through soft-NMS's indices."""
-    cfg = load_cfg("configs/video/3d_R50_T8_softnms_vote.yaml",
-                   opts=["TEST.DETECTIONS_PER_IM", 40, "TEST.SCORE_THRESH",
-                         0.05] + FINAL_OPTS[case])
+    jcfg, cfg = both_cfgs("configs/video/3d_R50_T8_softnms_vote.yaml",
+                          ["TEST.DETECTIONS_PER_IM", 40, "TEST.SCORE_THRESH",
+                           0.05] + FINAL_OPTS[case])
     t, b, k = 8, 2, 48
     rng = np.random.default_rng(12)
     base = rng.uniform(0, 200, (b, k // 4, 1, 4)).astype(np.float32)
@@ -116,7 +116,7 @@ def test_finalize_detections_matches_jax(case):
     valid = rng.uniform(size=(b, k)) > 0.2
     fc7 = rng.normal(size=(b, k, 16)).astype(np.float32)
 
-    want = GeneralizedRCNN(cfg).apply(
+    want = GeneralizedRCNN(jcfg).apply(
         {}, refined, scores, valid, fc7,
         method=GeneralizedRCNN._finalize_detections)
     model = build_model(cfg, device="meta")

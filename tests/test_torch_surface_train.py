@@ -67,7 +67,7 @@ def check_one_step(yaml_path, opts, masks=False, seed=5):
         return metrics, grads
 
     want_metrics, want_grads = run(params)
-    model = build_model(cfg, train=True)
+    model = build_model(cfg, device="cpu", train=True)
     model.load_state_dict(jax_params_to_state_dict(params, model))
     state = ttrain.create_train_state(cfg, model)
     step = ttrain.make_train_step(model, cfg)
@@ -91,7 +91,7 @@ def check_one_step(yaml_path, opts, masks=False, seed=5):
 
 
 def _frames(yaml_path, opts):
-    from detectandtrack_tpu.core.config import load_cfg
+    from detectandtrack_tpu_torch.core.config import load_cfg
     cfg = load_cfg(yaml_path, opts=list(TRAIN_OPTS) + list(opts))
     return cfg.VIDEO.NUM_FRAMES if cfg.VIDEO.VIDEO_ON else 1
 
@@ -110,7 +110,7 @@ def test_mask_on_batch_without_masks_trains_the_rest():
     cfg, _, params, _ = _pair(MASK_CFG, TRAIN_OPTS, (1, 1, H, W, 3), seed=5)
     runs = []
     for masks in (True, False):
-        model = build_model(cfg, train=True)
+        model = build_model(cfg, device="cpu", train=True)
         model.load_state_dict(jax_params_to_state_dict(params, model))
         batch = {k: torch.from_numpy(np.array(v))
                  for k, v in make_batch(

@@ -10,7 +10,6 @@ import pytest
 import torch
 
 from bench import make_realistic_tubes
-from detectandtrack_tpu.core.config import load_cfg
 from detectandtrack_tpu.engine import losses as jl
 from detectandtrack_tpu.engine import targets as jt
 from detectandtrack_tpu.ops.anchors import (generate_anchors,
@@ -19,6 +18,7 @@ from detectandtrack_tpu.utils import lr_policy as jlr
 from detectandtrack_tpu_torch.engine import losses as tl
 from detectandtrack_tpu_torch.engine import targets as tt
 from detectandtrack_tpu_torch.utils import lr_policy as tlr
+from test_torch_slice import both_cfgs
 
 
 def _t(x):
@@ -161,11 +161,11 @@ def test_keypoint_heatmap_targets_match_jax():
                                   ("linear", 0)])
 def test_lr_schedules_match_jax(policy, warm):
     method, iters = warm
-    cfg = load_cfg(opts=[
+    jcfg, cfg = both_cfgs(opts=[
         "SOLVER.LR_POLICY", policy, "SOLVER.BASE_LR", 0.02,
         "SOLVER.STEPS", "[0, 300, 450]", "SOLVER.GAMMA", 0.1,
         "SOLVER.WARM_UP_METHOD", method, "SOLVER.WARM_UP_ITERS", iters])
-    jsched = jlr.make_schedule(cfg.SOLVER)
+    jsched = jlr.make_schedule(jcfg.SOLVER)
     tsched = tlr.make_schedule(cfg.SOLVER)
     steps = np.arange(601)
     want = np.asarray(jax.vmap(jsched)(jnp.asarray(steps)))

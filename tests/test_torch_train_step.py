@@ -17,16 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from bench import make_realistic_tubes
-from detectandtrack_tpu.core.config import load_cfg
 from detectandtrack_tpu.engine import train as jtrain
 from detectandtrack_tpu_torch.engine import train as ttrain
 from detectandtrack_tpu_torch.models.detector import build_model
 from detectandtrack_tpu_torch.utils.params import (jax_params_to_state_dict,
                                                    state_dict_to_jax_params)
-from detectandtrack_tpu_torch.utils.synthetic import train_batch
+from detectandtrack_tpu_torch.utils.synthetic import (make_realistic_tubes,
+                                                      train_batch)
 from test_golden_hard import _OPTS as HARD_OPTS
-from test_torch_slice import _pair
+from test_torch_slice import _pair, both_cfgs
 
 B, T, G, H, W = 2, 2, 10, 64, 96
 LOSS_TOL = 1e-4
@@ -56,8 +55,9 @@ def jax_draws(seed, step):
     return draw
 
 
-def _cfg(clip, base_lr=0.004):
-    return load_cfg(opts=HARD_OPTS + ["SOLVER.CLIP_GRAD_NORM", clip,
+def _cfgs(clip, base_lr=0.004):
+    """(JAX config, port config) of the golden-hard model."""
+    return both_cfgs(opts=HARD_OPTS + ["SOLVER.CLIP_GRAD_NORM", clip,
                                       "SOLVER.BASE_LR", base_lr])
 
 
@@ -69,7 +69,7 @@ def weights():
 
 
 def _port(cfg, params):
-    model = build_model(cfg, train=True)
+    model = build_model(cfg, device="cpu", train=True)
     model.load_state_dict(jax_params_to_state_dict(params, model))
     return model
 
@@ -91,7 +91,7 @@ def jax_grads(weights):
     """JAX's step-0 loss terms, total gradient, and the gradient of the
     Fast R-CNN losses alone."""
     jm, params = weights
-    cfg = _cfg(10.0)
+    cfg, _ = _cfgs(10.0)
     batch = {k: jnp.asarray(v) for k, v in make_batch().items()}
     rng = jax.random.fold_in(jax.random.PRNGKey(cfg.RNG_SEED), 0)
 
@@ -112,7 +112,7 @@ def jax_grads(weights):
 def test_one_step_losses_and_gradients_match_jax(weights, jax_grads):
     _, params = weights
     want_metrics, want_grads, _ = jax_grads
-    cfg = _cfg(10.0)
+    _, cfg = _cfgs(10.0)
     model = _port(cfg, params)
     state = ttrain.create_train_state(cfg, model)
     step = ttrain.make_train_step(model, cfg)
@@ -140,7 +140,7 @@ def test_box_losses_do_not_reach_the_rpn(weights, jax_grads):
     """The kept proposals carry no gradient: the Fast R-CNN losses give
     the RPN head exactly zero gradient, in the port and in JAX."""
     jm, params = weights
-    cfg = _cfg(10.0)
+    _, cfg = _cfgs(10.0)
     model = _port(cfg, params)
     batch = _torch_batch(make_batch())
     _, metrics = ttrain.train_forward(
@@ -162,9 +162,9 @@ def test_box_losses_do_not_reach_the_rpn(weights, jax_grads):
 @pytest.mark.parametrize("clip,base_lr", [(10.0, 0.004), (0.0, 0.001)])
 def test_three_steps_match_jax_make_train_step(weights, clip, base_lr):
     jm, params = weights
-    cfg = _cfg(clip, base_lr)
-    jstate = jtrain.create_train_state(cfg, params)
-    jstep = jtrain.make_train_step(jm, cfg, donate=False)
+    jcfg, cfg = _cfgs(clip, base_lr)
+    jstate = jtrain.create_train_state(jcfg, params)
+    jstep = jtrain.make_train_step(jm, jcfg, donate=False)
     jbatch = {k: jnp.asarray(v) for k, v in make_batch().items()}
     model = _port(cfg, params)
     state = ttrain.create_train_state(cfg, model)
