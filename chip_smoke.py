@@ -27,8 +27,11 @@ Phases, one line each (any failure ends the run with a nonzero exit):
   6. RoIAlign backward kernel against its plain version (index_add_), on
      the four FPN levels of an 800x1344 clip with S=8: box (K=512, P=7) and
      keypoint (K=64, P=14) stages in K1's layout, and K3's layout on the P2
-     stack, f32 and bf16; conv1's autograd Function against the plain
-     conv's autograd, f32 with TF32 off;
+     stack, f32 and bf16, each with its bound; at the box stage also its
+     prep kernel (keys, footprints) equal to the plain rule, two calls
+     equal bit for bit, and a call whose output block is handed back from
+     a freed NaN-filled one (every cell written); conv1's autograd Function
+     against the plain conv's autograd, f32 with TF32 off;
   7. the inference slice at full width: the 3D R-50 T=8 keypoint model in
      bf16 with seeded random weights answers 4 requests of B=2 clips of
      8x800x1344 (3 through detect_with_proposals(run_rpn=True) with
@@ -57,7 +60,8 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      RPN-only branches (losses and every gradient).
 Then it prints the kernels' JSON line (launches summed over the
 full-width paths; conv1's f32 kernel counted over the parity phases, K3 on
-its own path; each with its time, its plain version's, its bound and the
+its own path, the RoIAlign backward's prep kernel beside its gather; each
+with its time, its plain version's, its bound and the
 one PyTorch call that computes the same function, where there is one),
 the nvidia-smi card line and, last, {"ok": true, "device": {...}}. It exits
 nonzero without a CUDA device.
@@ -428,6 +432,83 @@ def phase_k3(torch, results):
         del stack
 
 
+def _backward_bound(grad, shapes, dtype):
+    """The RoIAlign backward's bound: grad read once, the level maps
+    written once in `dtype`, the pairs' rois, slabs and levels read once;
+    2 FLOP per corner tap (16 taps per grad element at s=2) on the CUDA
+    cores."""
+    out_size = 2 if str(dtype).endswith("bfloat16") else 4
+    n_bytes = (grad.numel() * grad.element_size()
+               + sum(a * b * c * d for a, b, c, d in shapes) * out_size
+               + grad.shape[0] * 24)
+    return _bound(n_bytes, grad.numel() * 32, PEAK_F32_FLOPS)
+
+
+def _backward_prep_check(torch, results, label, shapes, strides, rois, slabs,
+                         levels, p):
+    """The backward's prep kernel (keys and footprints) against its plain
+    version on the card's tensors, exactly (the same f32 operations), with
+    its time and bound: the rois, slabs and levels read and the keys and
+    footprints written once; ~10 FLOP per sample position."""
+    from detectandtrack_tpu_torch.kernels import roi_align as ra
+
+    def kern():
+        return ra.backward_prep(shapes, strides, rois, slabs, levels, p, 2)
+
+    def plain():
+        return (ra.backward_keys(shapes[0][0], len(shapes), slabs, levels),
+                ra.backward_footprint(shapes, strides, rois, levels, p, 2))
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max((a.long() - b.long()).abs().max().item()
+              for a, b in zip(got, want))
+    if err != 0:
+        raise RuntimeError(f"roi_align_backward prep {label}: keys or "
+                           f"footprints differ from the plain rule by {err}")
+    ms = _time_ms(torch, kern)
+    plain_ms = _time_ms(torch, plain)
+    n = rois.shape[0]
+    bound_ms, bound_by = _bound(n * (24 + 20), n * 2 * p * 2 * 10,
+                                PEAK_F32_FLOPS)
+    empty = int((got[1] == 0).all(1).sum())
+    print(f"[backward] prep {label}: keys and footprints equal to the plain "
+          f"rule ({empty} of {n} pairs without a valid sample), kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
+          f"({bound_by})", flush=True)
+    results["roi_align_backward_prep"] = dict(
+        max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+
+
+def _backward_repeat_check(torch, name, kern, plain, shapes, dtype):
+    """Two calls agree bit for bit, and the second, whose output block
+    torch.empty hands back from a NaN-filled block of its size freed just
+    before (so a cell the kernel never wrote would show), is finite and
+    within tolerance of the plain version."""
+    first = kern()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    size = sum(a * b * c * d for a, b, c, d in shapes)
+    poison = torch.full((size,), float("nan"), dtype=dtype, device="cuda")
+    ptr = poison.data_ptr()
+    del poison
+    second = kern()
+    if second[0].data_ptr() != ptr:
+        raise RuntimeError(f"{name}: the allocator did not hand back the "
+                           "poisoned block; the check would prove nothing")
+    for i, (a, b, r) in enumerate(zip(first, second, plain())):
+        if not torch.isfinite(b.float()).all():
+            raise RuntimeError(f"{name} level {i}: a cell was never written "
+                               "(NaN from the poisoned block)")
+        _check(f"{name} level {i} on poisoned memory", b, r, dtype, torch)
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name} level {i}: two calls differ")
+    print(f"[backward] {name}: two calls equal bit for bit; on a poisoned "
+          "(NaN-filled) output block every cell written and within "
+          "tolerance", flush=True)
+
+
 def phase_backward(torch, results):
     """The RoIAlign backward kernel and conv1's autograd Function against
     their plain versions."""
@@ -451,6 +532,9 @@ def phase_backward(torch, results):
                   torch.arange(8, dtype=torch.int32,
                                device="cuda").repeat(300), None, 7))
     for label, shp, st, rois, slabs, levels, p in cases:
+        if label.startswith("box"):
+            _backward_prep_check(torch, results, label, shp, st, rois, slabs,
+                                 levels, p)
         for dtype in (torch.float32, torch.bfloat16):
             grad = torch.randn((rois.shape[0], p, p, 256), device="cuda",
                                generator=gen).to(dtype)
@@ -469,22 +553,18 @@ def phase_backward(torch, results):
             err = max(e for e, _ in errs)
             ms = _time_ms(torch, kern)
             plain_ms = _time_ms(torch, plain, iters=3, warmup=1)
+            bound_ms, bound_by = _backward_bound(grad, shp, dtype)
             print(f"[backward] {name}: max_abs_err={err:.3g} (tol "
                   f"{min(t for _, t in errs):.3g}) kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms", flush=True)
-            if label.startswith("box") and dtype == torch.bfloat16:
-                # grad read once, the level maps (in the feature dtype)
-                # written once; 2 FLOP per corner tap on the CUDA cores.
-                n_bytes = (grad.numel() + sum(
-                    a * b * c * d for a, b, c, d in shp)) * 2
-                bound_ms, bound_by = _bound(n_bytes, grad.numel() * 32,
-                                            PEAK_F32_FLOPS)
-                print(f"[backward] {name}: bound {bound_ms:.4f} ms "
-                      f"({bound_by}), {100 * bound_ms / ms:.1f}% of it",
-                      flush=True)
-                results["roi_align_backward"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                  f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of it", flush=True)
+            if label.startswith("box"):
+                _backward_repeat_check(torch, name, kern, plain, shp, dtype)
+                if dtype == torch.bfloat16:
+                    results["roi_align_backward"] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
             del grad
         torch.cuda.empty_cache()
 
@@ -557,17 +637,18 @@ def _reset_counters():
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
     conv1.launches = conv1.launches_tc = conv1.launches_cc = 0
     ra.roi_align_multilevel.launches = 0
-    ra.roi_align_backward.launches = 0
+    ra.roi_align_backward.launches = ra.backward_prep.launches = 0
 
 
 def _read_counters():
     """The launches since `_reset_counters`: conv1's tensor-core (bf16) and
-    CUDA-core (f32) kernels, K1, the RoIAlign backward."""
+    CUDA-core (f32) kernels, K1, the RoIAlign backward's gather and prep."""
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
     return {"conv1": conv1.launches_tc, "conv1_f32": conv1.launches_cc,
             "roi_align": ra.roi_align_multilevel.launches,
-            "roi_align_backward": ra.roi_align_backward.launches}
+            "roi_align_backward": ra.roi_align_backward.launches,
+            "roi_align_backward_prep": ra.backward_prep.launches}
 
 
 def _check_outputs(name, out, shapes, torch):
@@ -605,6 +686,7 @@ def _serve(torch, tag, model, detect, warmup, requests, passes=1):
     peak = torch.cuda.max_memory_allocated()
     heads = _heads(model)
     per_request = {"conv1": passes, "conv1_f32": 0, "roi_align_backward": 0,
+                   "roi_align_backward_prep": 0,
                    "roi_align": passes * len(heads) - (passes - 1) * int(
                        "mask_head" in heads)}
     want = {k: len(requests) * v for k, v in per_request.items()}
@@ -705,7 +787,8 @@ def _train_steps(torch, tag, cfg, n_steps, seed):
     heads = _heads(model)
     want = {"conv1": n_steps, "conv1_f32": 0,
             "roi_align": len(heads) * n_steps,
-            "roi_align_backward": len(heads) * n_steps}
+            "roi_align_backward": len(heads) * n_steps,
+            "roi_align_backward_prep": len(heads) * n_steps}
     if launches != want:
         raise RuntimeError(f"{tag}: launch counters {launches}, expected "
                            f"{want} for {n_steps} steps")
@@ -911,8 +994,13 @@ def phase_surface_kernels(torch):
                  bwd_slabs, tr_levels.reshape(-1), grad, p_box, 2)),
         ]
         for name, kern, plain in cases:
-            _kernel_vs_plain(torch, "surface-kernels", name, dtype, kern,
-                             plain)
+            _, ms, _ = _kernel_vs_plain(torch, "surface-kernels", name, dtype,
+                                        kern, plain)
+            if name.startswith("roi_align_backward"):
+                bound_ms, bound_by = _backward_bound(grad, bwd_shapes, dtype)
+                print(f"[surface-kernels] {name}: bound {bound_ms:.4f} ms "
+                      f"({bound_by}), {100 * bound_ms / ms:.1f}% of it",
+                      flush=True)
         del inf_map, tr_map, mp, grad
         torch.cuda.empty_cache()
 
@@ -926,7 +1014,7 @@ def phase_surface(torch):
     from detectandtrack_tpu_torch.models.detector import build_model
 
     total = {"conv1": 0, "conv1_f32": 0, "roi_align": 0,
-             "roi_align_backward": 0}
+             "roi_align_backward": 0, "roi_align_backward_prep": 0}
     b, n_req = 2, 2
     for path, tta in SURFACE_CFGS:
         cfg = load_cfg(os.path.join(REPO, path))
@@ -1171,6 +1259,11 @@ def main() -> int:
          "replaces": f"{ra}:566",
          "launches": launches["roi_align_backward"],
          **results["roi_align_backward"]},
+        {"name": "roi_align_backward_prep", "route": "cuda",
+         "source": "detectandtrack_tpu_torch/csrc/roi_align.cu",
+         "replaces": f"{ra}:566",
+         "launches": launches["roi_align_backward_prep"],
+         **results["roi_align_backward_prep"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,7 +9,11 @@ Port of the RoIAlign kernels of detectandtrack_tpu/kernels/roi_align.py:
                          per roi so one launch serves every entry point of
                          `roi_align_ops`;
   roi_align_backward     the gradient of both into the level maps (the JAX
-                         package takes it from XLA's vjp of its dense form).
+                         package takes it from XLA's vjp of its dense form):
+                         a prep kernel (`backward_prep`: each pair's key,
+                         samples and footprint), a stable sort by key
+                         (`backward_segments`), then a gather in which one
+                         block owns each map tile.
 
 Each launches its CUDA kernel in `csrc/roi_align.cu` for CUDA tensors and
 runs its plain PyTorch version (`*_reference`) for CPU tensors. All are
@@ -116,6 +120,68 @@ def _taps(shapes: Sequence[Sequence[int]], strides: Sequence[int],
     return taps
 
 
+def backward_footprint(shapes: Sequence[Sequence[int]],
+                       strides: Sequence[int], rois: torch.Tensor,
+                       levels: Optional[torch.Tensor], p: int, s: int
+                       ) -> torch.Tensor:
+    """Each of N rois' footprint on its level, (N, 4) int32 (y0, y1, x0,
+    x1), half-open: the cells that the bilinear corners of its valid
+    samples touch, widened by one cell on every side and clamped to the
+    map; all zero where no sample is valid on one of the axes. Every
+    nonzero tap of `_taps` lies inside (the backward kernel's tiles skip a
+    pair whose footprint misses them, so a footprint too narrow would drop
+    gradient; the slack of one cell covers any last-ulp difference in the
+    sample positions). The backward's prep kernel mirrors this rule."""
+    dev = rois.device
+    n = rois.shape[0]
+    lvl = _level_index(levels, n, dev).long().clamp(0, len(shapes) - 1)
+    hs = torch.tensor([sh[1] for sh in shapes], device=dev)[lvl]
+    ws = torch.tensor([sh[2] for sh in shapes], device=dev)[lvl]
+    sc = torch.tensor([1.0 / st for st in strides], dtype=torch.float32,
+                      device=dev)[lvl]
+    x1, y1, x2, y2 = (rois.float() * sc[:, None]).unbind(-1)
+    iy = (torch.arange(p, dtype=torch.float32, device=dev)[:, None]
+          + (torch.arange(s, dtype=torch.float32, device=dev)[None, :] + 0.5)
+          / s).reshape(-1)
+    out = []
+    for start, end, size in ((y1, y2, hs), (x1, x2, ws)):
+        c = start[:, None] + iy * ((end - start).clamp(min=1.0) / p)[:, None]
+        valid = (c >= -1.0) & (c <= size[:, None])
+        cc = torch.minimum(c.nan_to_num(0.0).clamp(min=0.0),
+                           size[:, None] - 1.0)
+        lo = torch.floor(cc).long()
+        hi = torch.minimum(lo + 1, size[:, None] - 1)
+        a = torch.where(valid, lo, torch.iinfo(torch.long).max).amin(1)
+        b = torch.where(valid, hi, -1).amax(1)
+        out += [(a - 1).clamp(min=0), torch.minimum(b + 2, size)]
+    fp = torch.stack(out, 1)
+    empty = (fp[:, 0] >= fp[:, 1]) | (fp[:, 2] >= fp[:, 3])
+    return torch.where(empty[:, None], 0, fp).to(torch.int32)
+
+
+def backward_keys(n_slabs: int, n_levels: int, slabs: torch.Tensor,
+                  levels: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each pair's key slab · L + level (int32), both clamped as the
+    kernels clamp them: the backward tiles of one (slab, level) visit
+    exactly the pairs of one key."""
+    lvl = _level_index(levels, slabs.shape[0], slabs.device)
+    return (slabs.clamp(0, n_slabs - 1) * n_levels
+            + lvl.clamp(0, n_levels - 1)).to(torch.int32)
+
+
+def backward_segments(keys: torch.Tensor, n_keys: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pairs sorted by key, stably (int64 (N,)), and the first of each
+    key's pairs in that order (int32 (n_keys + 1,), the last entry N):
+    key k's pairs are order[seg[k]:seg[k + 1]], in index order. No host
+    synchronisation (searchsorted, not bincount)."""
+    sorted_keys, order = torch.sort(keys, stable=True)
+    seg = torch.searchsorted(
+        sorted_keys, torch.arange(n_keys + 1, dtype=torch.int32,
+                                  device=keys.device), out_int32=True)
+    return order, seg
+
+
 def _level_index(levels: Optional[torch.Tensor], n: int, device
                  ) -> torch.Tensor:
     if levels is None:
@@ -197,10 +263,17 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.dat_roi_align_multilevel.restype = ctypes.c_int
-    for fn in (lib.dat_roi_align_pairs, lib.dat_roi_align_backward):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+    lib.dat_roi_align_pairs.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.dat_roi_align_backward_prep.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.dat_roi_align_backward.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    for fn in (lib.dat_roi_align_pairs, lib.dat_roi_align_backward_prep,
+               lib.dat_roi_align_backward):
         fn.restype = ctypes.c_int
     return lib
 
@@ -367,6 +440,56 @@ def roi_align_pairs(features: Sequence[torch.Tensor],
 roi_align_pairs.launches = 0
 
 
+def backward_prep(shapes: Sequence[Sequence[int]], strides: Sequence[int],
+                  rois: torch.Tensor, slabs: torch.Tensor,
+                  levels: Optional[torch.Tensor], p: int, s: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each (roi, slab) pair's key and footprint, as the backward kernel
+    visits them: (`backward_keys` (N,), `backward_footprint` (N, 4)).
+
+    CPU tensors run those plain functions; CUDA tensors launch the prep
+    kernel, which mirrors them, or raise.
+    """
+    if not rois.is_cuda:
+        return (backward_keys(shapes[0][0], len(shapes), slabs, levels),
+                backward_footprint(shapes, strides, rois, levels, p, s))
+    what = "roi_align backward prep kernel"
+    shapes = [tuple(sh) for sh in shapes]
+    _check_call(what, shapes, torch.float32, strides, p, s)
+    _check_pairs(what, shapes, rois, slabs, levels)
+    _, hs, ws, scales = _level_table([0] * len(shapes), shapes, strides)
+    with torch.cuda.device(rois.device):
+        return _launch_prep(_lib(), (hs, ws, scales), shapes, rois, slabs,
+                            levels, p, s)[:2]
+
+
+backward_prep.launches = 0
+
+
+def _launch_prep(lib, tables, shapes, rois, slabs, levels, p, s):
+    """The prep kernel alone, on checked inputs, on the current device →
+    (keys, footprints, samples), views of one 16-byte aligned buffer:
+    samples (N, 2, P·s, 4) f32 (lo and hi as int32 bits, then wlo and
+    whi, zero for an invalid sample; y then x), footprints (N, 4) int32,
+    keys (N,) int32."""
+    n = rois.shape[0]
+    n_smp = n * 2 * p * s * 4
+    buf = torch.empty((n_smp + 5 * n,), dtype=torch.int32, device=rois.device)
+    samples = buf[:n_smp]
+    footprints = buf[n_smp:n_smp + 4 * n].view(n, 4)
+    keys = buf[n_smp + 4 * n:]
+    hs, ws, scales = tables
+    err = lib.dat_roi_align_backward_prep(
+        ctypes.addressof(hs), ctypes.addressof(ws), ctypes.addressof(scales),
+        len(shapes), rois.data_ptr(), slabs.data_ptr(),
+        0 if levels is None else levels.data_ptr(), keys.data_ptr(),
+        footprints.data_ptr(), samples.data_ptr(), n, shapes[0][0], p, s,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "roi_align backward prep kernel launch")
+    backward_prep.launches += 1
+    return keys, footprints, samples
+
+
 def roi_align_backward(shapes: Sequence[Sequence[int]], dtype: torch.dtype,
                        strides: Sequence[int], rois: torch.Tensor,
                        slabs: torch.Tensor, levels: Optional[torch.Tensor],
@@ -377,8 +500,10 @@ def roi_align_backward(shapes: Sequence[Sequence[int]], dtype: torch.dtype,
     level in `dtype` (summed in f32).
 
     CPU tensors run `roi_align_backward_reference`; CUDA tensors launch the
-    scatter kernel (f32 atomics, so the sums are not bitwise reproducible)
-    or raise.
+    prep kernel (`backward_prep`), sort the pairs (`backward_segments`)
+    and launch the tile-owned gather kernel, or raise. The gather writes
+    every cell of the maps once, in `dtype`, with no atomics, so two calls
+    agree bit for bit.
     """
     if not grad.is_cuda:
         return roi_align_backward_reference(shapes, dtype, strides, rois,
@@ -396,29 +521,46 @@ def roi_align_backward(shapes: Sequence[Sequence[int]], dtype: torch.dtype,
                          f"({n}, {p}, {p}, {c}) on {rois.device}, got "
                          f"{tuple(grad.shape)} {grad.dtype} on {grad.device}")
     sizes = [sh[0] * sh[1] * sh[2] * sh[3] for sh in shapes]
-    acc = torch.zeros((sum(sizes),), dtype=torch.float32, device=grad.device)
-    maps = [m.view(sh) for m, sh in zip(acc.split(sizes), shapes)]
+    out = torch.empty((sum(sizes),), dtype=dtype, device=grad.device)
+    maps = [m.view(sh) for m, sh in zip(out.split(sizes), shapes)]
     ptrs, hs, ws, scales = _level_table([m.data_ptr() for m in maps], shapes,
                                         strides)
     lib = _lib()
     with torch.cuda.device(grad.device):
-        err = lib.dat_roi_align_backward(
-            ctypes.addressof(ptrs), ctypes.addressof(hs), ctypes.addressof(ws),
-            ctypes.addressof(scales), len(shapes), rois.data_ptr(),
-            slabs.data_ptr(), 0 if levels is None else levels.data_ptr(),
-            grad.data_ptr(), n, shapes[0][0], c, p, sampling_ratio,
-            _DTYPES[grad.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, f"{what} launch")
+        keys, footprints, samples = _launch_prep(
+            lib, (hs, ws, scales), shapes, rois, slabs, levels, p,
+            sampling_ratio)
+        order, seg = backward_segments(keys, shapes[0][0] * len(shapes))
+        _launch_gather(lib, (ptrs, hs, ws, scales), shapes, dtype, order, seg,
+                       footprints.index_select(0, order), samples, grad,
+                       sampling_ratio)
     roi_align_backward.launches += 1
-    return [m.to(dtype) for m in maps]
+    return maps
 
 
 roi_align_backward.launches = 0
 
 
+def _launch_gather(lib, tables, shapes, dtype, order, seg, footprints,
+                   samples, grad, sampling_ratio) -> None:
+    """The gather kernel alone, on checked inputs (`footprints` in the
+    sorted order, `samples` the prep kernel's), on the current device,
+    into the maps whose pointers `tables` holds."""
+    n, p, _, c = grad.shape
+    ptrs, hs, ws, scales = tables
+    err = lib.dat_roi_align_backward(
+        ctypes.addressof(ptrs), ctypes.addressof(hs), ctypes.addressof(ws),
+        ctypes.addressof(scales), len(shapes), order.data_ptr(),
+        seg.data_ptr(), footprints.data_ptr(), samples.data_ptr(),
+        grad.data_ptr(), n, shapes[0][0], c, p, sampling_ratio,
+        _DTYPES[grad.dtype], _DTYPES[dtype],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "roi_align backward kernel launch")
+
+
 class _RoIAlignFunction(torch.autograd.Function):
-    """Forward K1 (slab-grouped rois) or K3 (pairs); backward the scatter
-    kernel (or their plain versions on the CPU)."""
+    """Forward K1 (slab-grouped rois) or K3 (pairs); backward the
+    tile-owned gather kernel (or their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, grouped, strides, rois, slabs, levels, output_size,

@@ -186,35 +186,133 @@ def test_roi_align_pairs_kernel_matches_plain(cuda, dtype, p, per_roi_levels):
     assert (got.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _bwd_rois(rng, cuda, n=23):
+    """`_pair_rois` and the backward's special rois: NaN corners, 6:1 and
+    1:6, larger than the image, image-sized, samples clamped to the last
+    cell (the maps of `_maps` cover a 384x320 image at stride 4)."""
+    nan = float("nan")
+    extra = torch.tensor([
+        [nan, 10, 40, 50], [10, 10, nan, 50], [nan, nan, nan, nan],
+        [10, 100, 370, 160], [120, 5, 180, 305], [-500, -500, 2000, 2000],
+        [0, 0, 383, 319], [378, 314, 383, 319]])
+    return torch.cat([_pair_rois(rng, cuda, n), extra.to(cuda)])
+
+
 @pytest.mark.parametrize("p", [7, 14])
-def test_roi_align_backward_kernel_matches_plain(cuda, dtype, p):
-    """f32 atomics sum in a varying order: held to the plain index_add_
-    version at the same tolerances as the forward."""
-    rng = np.random.default_rng(3)
-    feats = _maps(rng, cuda, dtype)
-    shapes = [f.shape for f in feats]
-    rois = _pair_rois(rng, cuda)
+def test_roi_align_pairs_kernel_matches_plain_on_nan_rois(cuda, p):
+    """A roi with a NaN corner pools zeros, as the plain version's samples
+    are all invalid there (a NaN extent stays NaN through max(extent, 1))."""
+    rng = np.random.default_rng(12)
+    feats = _maps(rng, cuda, torch.float32)
+    rois = _bwd_rois(rng, cuda)
+    slabs = torch.from_numpy(rng.integers(0, 3, rois.shape[0]).astype(
+        np.int32)).to(cuda)
+    got = ra.roi_align_pairs(feats, [4, 8, 16], rois, slabs, None, p, 2)
+    ref = ra.roi_align_pairs_reference(feats, [4, 8, 16], rois, slabs, None,
+                                       p, 2)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert not got[rois.isnan().any(1)].any()
+
+
+def _bwd_case(seed, cuda, dtype, p, c=40, per_roi_levels=True, n=23,
+              hw=((80, 96), (37, 45), (19, 23))):
+    rng = np.random.default_rng(seed)
+    shapes = [(3, h, w, c) for h, w in hw]
+    rois = _bwd_rois(rng, cuda, n) if n else torch.zeros((0, 4), device=cuda)
     n = rois.shape[0]
     slabs = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
-    levels = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
-    grad = torch.from_numpy(rng.normal(size=(n, p, p, 40)).astype(
+    levels = (torch.from_numpy(rng.integers(0, len(hw), n).astype(np.int32))
+              .to(cuda) if per_roi_levels else None)
+    grad = torch.from_numpy(rng.normal(size=(n, p, p, c)).astype(
         np.float32)).to(cuda, dtype)
+    return shapes, [4, 8, 16][:len(hw)], rois, slabs, levels, grad
+
+
+def _bwd_held(shapes, strides, rois, slabs, levels, grad, p, dtype, s=2):
+    """One kernel call (counted) held to the plain version → its maps."""
     before = ra.roi_align_backward.launches
-    got = ra.roi_align_backward(shapes, dtype, [4, 8, 16], rois, slabs,
-                                levels, grad, p, 2)
+    got = ra.roi_align_backward(shapes, dtype, strides, rois, slabs, levels,
+                                grad, p, s)
     assert ra.roi_align_backward.launches == before + 1
-    ref = ra.roi_align_backward_reference(shapes, dtype, [4, 8, 16], rois,
-                                          slabs, levels, grad, p, 2)
+    ref = ra.roi_align_backward_reference(shapes, dtype, strides, rois, slabs,
+                                          levels, grad, p, s)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert g.dtype == dtype and g.shape == r.shape
+        assert torch.isfinite(g.float()).all()
         assert (g.float() - r.float()).abs().max().item() <= _tol(r, dtype)
+    return got, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [7, 14])
+@pytest.mark.parametrize("c,per_roi_levels", [(40, True), (40, False),
+                                              (41, True), (12, True),
+                                              (3, False)])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, p, c,
+                                                 per_roi_levels):
+    """The tile-owned gather against the plain index_add_ version at the
+    forward's tolerances, with the special rois (NaN among them), C % 8 != 0
+    (channel by channel) and levels=None."""
+    case = _bwd_case(3, cuda, dtype, p, c, per_roi_levels)
+    _, ref = _bwd_held(*case, p, dtype)
     assert any(r.abs().sum() > 0 for r in ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,s", [(5, 2), (7, 3), (14, 1)])
+def test_roi_align_backward_kernel_other_output_sizes(cuda, dtype, p, s):
+    """Output sizes and sampling ratios the kernel takes at run time (7 and
+    14 at s=2 are compiled in)."""
+    case = _bwd_case(11, cuda, dtype, p)
+    _bwd_held(*case, p, dtype, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_at_1024_channels_and_no_rois(cuda, dtype):
+    """One 1024-wide level (C4's res4: 8 channel slices per tile) at P=14,
+    and N == 0, whose maps are all zeros."""
+    case = _bwd_case(9, cuda, dtype, 14, 1024, True, hw=((50, 84),))
+    _bwd_held(*case, 14, dtype)
+    got, _ = _bwd_held(*_bwd_case(9, cuda, dtype, 7, n=0), 7, dtype)
+    assert not any(g.any() for g in got)
+
+
+def test_roi_align_backward_prep_matches_plain_footprints(cuda):
+    """The prep kernel's keys and footprints equal the plain rule's."""
+    shapes, strides, rois, slabs, levels, _ = _bwd_case(5, cuda,
+                                                        torch.float32, 7)
+    for lv in (levels, None):
+        for p in (7, 14):
+            keys, fp = ra.backward_prep(shapes, strides, rois, slabs, lv, p,
+                                        2)
+            want = ra.backward_prep(shapes, strides, rois.cpu(), slabs.cpu(),
+                                    None if lv is None else lv.cpu(), p, 2)
+            assert torch.equal(keys.cpu(), want[0])
+            assert torch.equal(fp.cpu(), want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_is_bitwise_repeatable_on_poisoned_memory(
+        cuda, dtype):
+    """Every cell has one owner and a fixed order: two calls agree bit for
+    bit. The output comes from torch.empty: a NaN-filled block of its size,
+    freed just before the call, is what the allocator hands back, so an
+    unwritten tile would show."""
+    case = _bwd_case(7, cuda, dtype, 7)
+    first = ra.roi_align_backward(case[0], dtype, *case[1:], 7, 2)
+    size = sum(int(np.prod(sh)) for sh in case[0])
+    poison = torch.full((size,), float("nan"), dtype=dtype, device=cuda)
+    ptr = poison.data_ptr()
+    del poison
+    second, _ = _bwd_held(*case, 7, dtype)
+    assert second[0].data_ptr() == ptr
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_roi_align_function_on_card_matches_cpu(cuda):
-    """The slab-grouped autograd path: K1 forward, the scatter kernel
+    """The slab-grouped autograd path: K1 forward, the gather kernel
     backward, against the CPU path's gradients."""
     rng = np.random.default_rng(4)
     cpu = [f.cpu().requires_grad_() for f in _maps(rng, cuda, torch.float32)]
