@@ -42,6 +42,17 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      with seeded GT; losses finite, launch counters (conv1 = steps,
      RoIAlign forward = backward = 2 x steps), FPN and res3+ gradients
      nonzero, parameters moved;
+  8b. [dataset] the dataset-level path through the port's CLI, bf16,
+     seeded weights: a generated hard synthetic set at 720x1280 (3 videos
+     of 13 frames, 1 of 5) under configs/video/track_3d_R50_hungarian.yaml
+     (3D R-50 T=8, bucket 800x1344): --mode test at batch 2 (7 windows, 4
+     batches, the last padded), track, eval, stream, and test with
+     TEST.PROPOSAL_FILES (GT boxes); then 3 frames at 480x640 through the
+     multi-scale flip TTA + KPS_AUG config (three scales, three buckets).
+     Checked: launch counters derived from windows and batches, every
+     frame once, finite outputs and metrics, stream track ids equal to
+     test + track, eval of the written tracks equal to track's metrics;
+     printed: wall time, frames/s, per-batch model time, peak memory;
   9. [surface] the rest of the model surface: the kernels against their
      plain versions at the shapes its paths give them, read from the
      configs (conv1 at t=1 on 800x1344; K1 on C4's one 1024-wide
@@ -59,10 +70,11 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      each of the golden model and of the mask, C4, center-frame and
      RPN-only branches (losses and every gradient).
 Then it prints the kernels' JSON line (launches summed over the
-full-width paths; conv1's f32 kernel counted over the parity phases, K3 on
-its own path, the RoIAlign backward's prep kernel beside its gather; each
-with its time, its plain version's, its bound and the
-one PyTorch call that computes the same function, where there is one),
+full-width paths, the [dataset] CLI runs among them; conv1's f32 kernel
+counted over the parity phases, K3 on its own path, the RoIAlign
+backward's prep kernel beside its gather; each with its time, its plain
+version's, its bound and the one PyTorch call that computes the same
+function, where there is one),
 the nvidia-smi card line and, last, {"ok": true, "device": {...}}. It exits
 nonzero without a CUDA device.
 """
@@ -1174,6 +1186,360 @@ def phase_parity(torch):
               f"max_abs_err {errs}{note}", flush=True)
 
 
+DATASET_CFG = "configs/video/track_3d_R50_hungarian.yaml"
+TTA_CFG = "configs/video/2d_R101_FPN_kps_multiscale_tta.yaml"
+DATASET_DIR = os.path.join(REPO, "out_smoke")       # gitignored (/out*/)
+DATASET_HW = (720, 1280)     # PoseTrack's common frame size
+TTA_HW = (480, 640)          # routes the TTA config's 3 scales to 3 buckets
+# Random weights score below the tracking config's 0.5 filter; 0.05 (the
+# detection threshold) links them, so the stream-vs-two-pass check sees
+# real track ids. Nothing else of the config changes.
+DATASET_OPTS = ["TRACKING.CONF_FILTER_INITIAL_DETS", "0.05"]
+TTA_OPTS: list = []
+
+
+def _merge_sets(out_dir, parts, name):
+    """Merge generated set files into one `name` (image ids offset)."""
+    merged = None
+    for part in parts:
+        with open(os.path.join(out_dir, part)) as f:
+            doc = json.load(f)
+        if merged is None:
+            merged = doc
+            continue
+        off = max(im["id"] for im in merged["images"])
+        for im in doc["images"]:
+            im["id"] += off
+        for an in doc["annotations"]:
+            an["image_id"] += off
+        merged["images"] += doc["images"]
+        merged["annotations"] += doc["annotations"]
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump(merged, f)
+
+
+def _windows(n_frames, span):
+    """run_inference's tiling: non-overlapping windows, an end-aligned
+    tail, one padded window for a video shorter than the span."""
+    if n_frames < span:
+        return 1
+    return len(range(0, n_frames - span + 1, span)) + int(
+        (n_frames - span) % span != 0)
+
+
+class _Instrumented:
+    """Wraps the port's `run_inference` (its wall time), `load_clip` (the
+    host's decode, resize and normalise of each clip), `make_detect_fn`
+    and `make_kps_aug_fns` (CUDA events around every model call) and
+    `StreamingTrackingSink` (every (video, ordinal) it receives) for the
+    CLI runs inside the `with` block; restores them after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events, self.walls, self.sunk, self.loads = [], [], [], []
+
+    def __enter__(self):
+        from detectandtrack_tpu_torch.engine import inference as tinf
+        from detectandtrack_tpu_torch.tracking import engine as teng
+        self.saved = [(tinf, "run_inference", tinf.run_inference),
+                      (tinf, "make_detect_fn", tinf.make_detect_fn),
+                      (tinf, "make_kps_aug_fns", tinf.make_kps_aug_fns),
+                      (teng, "StreamingTrackingSink",
+                       teng.StreamingTrackingSink),
+                      (tinf, "load_clip", tinf.load_clip)]
+        torch, inst = self.torch, self
+
+        def timed(fn, kind):
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+                inst.events.append((kind, start, end))
+                return out
+            return call
+
+        def run_inference(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.saved[0][2](*args, **kw)
+            torch.cuda.synchronize()
+            inst.walls.append(time.perf_counter() - t0)
+            return out
+
+        def make_detect_fn(*args, **kw):
+            return timed(self.saved[1][2](*args, **kw), "detect")
+
+        def make_kps_aug_fns(*args, **kw):
+            hm, dec = self.saved[2][2](*args, **kw)
+            return timed(hm, "kps_aug heatmaps"), timed(dec, "kps_aug decode")
+
+        def load_clip(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.saved[4][2](*args, **kw)
+            inst.loads.append(time.perf_counter() - t0)
+            return out
+
+        class Sink(self.saved[3][2]):
+            def __call__(self, vid, ordinal, total, frame):
+                inst.sunk.append((vid, ordinal, total))
+                return super().__call__(vid, ordinal, total, frame)
+
+        tinf.run_inference = run_inference
+        tinf.make_detect_fn = make_detect_fn
+        tinf.make_kps_aug_fns = make_kps_aug_fns
+        teng.StreamingTrackingSink = Sink
+        tinf.load_clip = load_clip
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def batch_ms(self, kind="detect"):
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for k, s, e in self.events if k == kind]
+
+
+def _cli_run(torch, tag, mode, cfg_path, out, opts, batch, want=None):
+    """One port CLI call `--mode mode` on the card; with `want`, the launch
+    counters of the run must equal it → (launches, wall s, peak GiB)."""
+    from detectandtrack_tpu_torch.cli.launch import main as cli
+    argv = ["--mode", mode, "--cfg", os.path.join(REPO, cfg_path), "--out",
+            out, "--device", "cuda", "--batch-size", str(batch)] + opts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    if want is not None and launches != want:
+        raise RuntimeError(f"[dataset] {tag}: launch counters {launches}, "
+                           f"expected {want}")
+    return launches, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _check_dataset_dets(tag, dets, ds, d):
+    """Every frame of every video once, finite boxes, scores, keypoints of
+    the static per-frame shapes; some detection valid → the valid count."""
+    from detectandtrack_tpu_torch.utils.io import load_object
+    dets = load_object(dets)
+    if sorted(dets) != ds.videos():
+        raise RuntimeError(f"{tag}: videos {sorted(dets)}")
+    n_valid = 0
+    for vid, frames in dets.items():
+        if len(frames) != len(ds.video_frames(vid)):
+            raise RuntimeError(f"{tag}: {vid} has {len(frames)} frames of "
+                               f"{len(ds.video_frames(vid))}")
+        for fr in frames:
+            shapes = {"boxes": (d, 4), "scores": (d,), "keypoints": (d, 15, 3)}
+            for key, shape in shapes.items():
+                if fr[key].shape != shape or not np.isfinite(fr[key]).all():
+                    raise RuntimeError(f"{tag}: {vid} {key} {fr[key].shape} "
+                                       "not finite or of the wrong shape")
+            n_valid += int(fr["valid"].sum())
+    if n_valid == 0:
+        raise RuntimeError(f"{tag}: no valid detection")
+    return n_valid
+
+
+def _json_load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _finite_metrics(tag, path, keys):
+    metrics = _json_load(path)
+    bad = [k for k in keys if not np.isfinite(metrics.get(k, float("nan")))]
+    if bad:
+        raise RuntimeError(f"{tag}: {path} metrics {bad} missing or not "
+                           f"finite: {metrics}")
+    return {k: metrics[k] for k in keys}
+
+
+def phase_dataset(torch):
+    """The dataset-level path through the port's CLI at full width, bf16,
+    seeded random weights: a hard synthetic PoseTrack set at 720x1280
+    (three videos of 13 frames, one of 5) under the main tracking config
+    (3D R-50 T=8, bucket 800x1344): --mode test at batch 2 (7 windows, 4
+    batches, the last padded), track, eval, then stream; the same set
+    through TEST.PROPOSAL_FILES (GT boxes as proposals); and a 480x640 set
+    through the multi-scale flip TTA + KPS_AUG config (three scales, three
+    buckets). Checked: launch counters derived from the windows and
+    batches, every frame once, finite outputs and metrics, the stream's
+    track ids equal test + track's, eval of the written tracks equal to
+    track's metrics → the launches summed over the four model runs."""
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.data.posetrack import get_dataset
+    from detectandtrack_tpu_torch.data.synthetic import (
+        generate_synthetic_posetrack)
+    from detectandtrack_tpu_torch.tracking.engine import (
+        read_posetrack_results)
+    from detectandtrack_tpu_torch.utils.io import save_object
+
+    t_phase = time.perf_counter()
+    card = _card_line()
+    data = os.path.join(DATASET_DIR, "data")
+    hard = os.path.join(data, "synthetic_hard")
+    generate_synthetic_posetrack(hard, num_videos=3, frames_per_video=13,
+                                 image_hw=DATASET_HW, seed=0, hard=True,
+                                 json_name="long.json")
+    generate_synthetic_posetrack(hard, num_videos=1, frames_per_video=5,
+                                 image_hw=DATASET_HW, seed=1, hard=True,
+                                 json_name="short.json", video_prefix="short")
+    _merge_sets(hard, ["long.json", "short.json"], "val.json")
+    opts = DATASET_OPTS + ["DATA.ROOT", data,
+                           "TEST.DATASETS", "[posetrack_synthetic_hard_val]"]
+    cfg = load_cfg(os.path.join(REPO, DATASET_CFG), opts=opts)
+    ds = get_dataset("posetrack_synthetic_hard_val", data)
+    t, b, d = cfg.VIDEO.NUM_FRAMES, 2, cfg.TEST.DETECTIONS_PER_IM
+    n_frames = sum(len(ds.video_frames(v)) for v in ds.videos())
+    n_win = sum(_windows(len(ds.video_frames(v)), t) for v in ds.videos())
+    n_batch = -(-n_win // b)
+    if (n_win, n_batch, n_frames) != (7, 4, 44):
+        raise RuntimeError(f"[dataset] set: {n_win} windows, {n_batch} "
+                           f"batches, {n_frames} frames")
+    # Per batch: conv1 once, K1 at the box and the keypoint stage.
+    want = {"conv1": n_batch, "conv1_f32": 0, "roi_align": 2 * n_batch,
+            "roi_align_backward": 0, "roi_align_backward_prep": 0}
+    out = {m: os.path.join(DATASET_DIR, m) for m in ("two", "one", "prop",
+                                                    "tta")}
+    print(f"[dataset] {card}; set: {len(ds.videos())} videos, {n_frames} "
+          f"frames at {DATASET_HW[0]}x{DATASET_HW[1]} (hard synthetic), "
+          f"{n_win} windows of T={t}, "
+          f"{n_batch} batches of B={b}", flush=True)
+
+    with _Instrumented(torch) as ins:
+        launches, wall, peak = _cli_run(torch, "test", "test", DATASET_CFG,
+                                        out["two"], opts, b, want)
+    n_valid = _check_dataset_dets("[dataset] test", os.path.join(
+        out["two"], "detections.pkl"), ds, d)
+    batch_ms = ins.batch_ms()
+    if len(batch_ms) != n_batch:
+        raise RuntimeError(f"[dataset] test: {len(batch_ms)} model calls")
+    det_m = _finite_metrics("[dataset] test", os.path.join(
+        out["two"], "detection_metrics.json"),
+        ["box_AP", "box_AP50", "keypoint_AP"])
+    run_s = ins.walls[0]
+    print(f"[dataset] test (bf16, B={b}): CLI {wall:.2f} s; run_inference "
+          f"{run_s:.3f} s = {n_frames / run_s:.2f} frames/s end to end "
+          f"(decode included); model per batch ms "
+          f"{[round(x, 2) for x in batch_ms]} (median "
+          f"{statistics.median(batch_ms):.2f}, sum {sum(batch_ms):.1f}: the "
+          f"card busy {100 * sum(batch_ms) / 1e3 / run_s:.1f}% of the run at "
+          f"most); host load_clip {len(ins.loads)} clips, "
+          f"{sum(ins.loads):.3f} s (median "
+          f"{1e3 * statistics.median(ins.loads):.1f} ms a clip of {t} "
+          f"frames); peak memory {peak:.2f} GiB; launches {launches}; "
+          f"{n_valid} valid detections; {det_m} ({card})", flush=True)
+
+    for mode in ("track", "eval"):
+        _cli_run(torch, mode, mode, DATASET_CFG, out["two"], opts, b)
+    track_m = _finite_metrics("[dataset] track", os.path.join(
+        out["two"], "track_metrics.json"), ["mAP", "MOTA"])
+    if _json_load(os.path.join(out["two"], "track_metrics.json")) != (
+            _json_load(os.path.join(out["two"], "eval_metrics.json"))):
+        raise RuntimeError("[dataset] eval of the written tracks differs "
+                           "from track's in-memory metrics")
+
+    with _Instrumented(torch) as ins_s:
+        stream_launches, stream_wall, _ = _cli_run(
+            torch, "stream", "stream", DATASET_CFG, out["one"], opts, b, want)
+    per_frame = {}
+    for vid, ordinal, total in ins_s.sunk:
+        per_frame[(vid, ordinal)] = per_frame.get((vid, ordinal), 0) + 1
+        if total != len(ds.video_frames(vid)):
+            raise RuntimeError(f"[dataset] stream: {vid} total {total}")
+    if len(per_frame) != n_frames or set(per_frame.values()) != {1}:
+        raise RuntimeError("[dataset] stream: frames not sunk exactly once")
+    two = read_posetrack_results(os.path.join(out["two"], "tracks"))
+    one = read_posetrack_results(os.path.join(out["one"], "tracks"))
+    linked = 0
+    for vid in two:
+        if len(one.get(vid, [])) != len(two[vid]) or any(
+                not np.array_equal(a["track_ids"], c["track_ids"])
+                or not np.array_equal(a["boxes"], c["boxes"])
+                for a, c in zip(one[vid], two[vid])):
+            raise RuntimeError(f"[dataset] stream: {vid}'s track ids or boxes "
+                               "differ from test + track")
+        linked += sum(len(fr["track_ids"]) for fr in two[vid])
+    if linked == 0 or set(one) != set(two):
+        raise RuntimeError(f"[dataset] stream: {linked} tracked detections")
+    if _json_load(os.path.join(out["one"], "track_metrics.json")) != (
+            _json_load(os.path.join(out["two"], "track_metrics.json"))):
+        raise RuntimeError("[dataset] stream metrics differ from track's")
+    print(f"[dataset] track + eval: {track_m}, eval of the written tracks "
+          f"equal; stream: CLI {stream_wall:.2f} s, run_inference "
+          f"{ins_s.walls[0]:.3f} s ({n_frames / ins_s.walls[0]:.2f} "
+          f"frames/s), {len(ins_s.sunk)} frames sunk once each, track ids "
+          f"and boxes equal to test + track on {linked} tracked detections; "
+          f"launches {stream_launches}", flush=True)
+
+    # TEST.PROPOSAL_FILES: GT boxes (rows sorted by track id) as the tubes;
+    # the RPN is skipped, K1 still runs at the box and keypoint stages.
+    db = {vid: {i: np.array([p["box"] for p in sorted(
+        ds.gt_poses(fr), key=lambda p: p["track_id"])], np.float32).reshape(
+            -1, 4) for i, fr in enumerate(ds.video_frames(vid))}
+          for vid in ds.videos()}
+    prop_path = os.path.join(DATASET_DIR, "proposals.pkl")
+    save_object(db, prop_path)
+    with _Instrumented(torch) as ins_p:
+        prop_launches, _, _ = _cli_run(
+            torch, "proposal files", "test", DATASET_CFG, out["prop"],
+            opts + ["TEST.PROPOSAL_FILES", f"[{prop_path}]"], b, want)
+    n_valid_p = _check_dataset_dets("[dataset] proposal files", os.path.join(
+        out["prop"], "detections.pkl"), ds, d)
+    print(f"[dataset] TEST.PROPOSAL_FILES (GT boxes): {n_valid_p} valid "
+          f"detections, model per batch ms median "
+          f"{statistics.median(ins_p.batch_ms()):.2f}; launches "
+          f"{prop_launches}", flush=True)
+
+    # Multi-scale flip TTA + KPS_AUG: 480x640 frames route the three scales
+    # (800, 600, 1000) to the three buckets.
+    tta_data = os.path.join(DATASET_DIR, "tta")
+    generate_synthetic_posetrack(os.path.join(tta_data, "synthetic"),
+                                 num_videos=1, frames_per_video=3,
+                                 image_hw=TTA_HW, seed=2, hard=True,
+                                 json_name="val.json")
+    tta_opts = TTA_OPTS + ["DATA.ROOT", tta_data,
+                           "TEST.DATASETS", "[posetrack_synthetic_val]"]
+    tcfg = load_cfg(os.path.join(REPO, TTA_CFG), opts=tta_opts)
+    tds = get_dataset("posetrack_synthetic_val", tta_data)
+    n_clips = len(tds.video_frames(tds.videos()[0]))          # T=1 windows
+    scales = [tcfg.TEST.SCALE] + list(tcfg.TEST.BBOX_AUG_SCALES)
+    # Phase 1: each scale pass lands in its own bucket, ceil(n / B) batches
+    # of detect_tta each (two feature passes, K1 at the box and keypoint
+    # stage of each); phase 2: ceil(n / B) batches of the merged clips, each
+    # one feature pass pair and one keypoint K1 pair per scale.
+    p1, p2 = len(scales) * -(-n_clips // b), -(-n_clips // b)
+    want_tta = {"conv1": 2 * p1 + 2 * len(scales) * p2, "conv1_f32": 0,
+                "roi_align": 4 * p1 + 2 * len(scales) * p2,
+                "roi_align_backward": 0, "roi_align_backward_prep": 0}
+    with _Instrumented(torch) as ins_t:
+        tta_launches, tta_wall, tta_peak = _cli_run(
+            torch, "multi-scale TTA", "test", TTA_CFG, out["tta"], tta_opts, b,
+            want_tta)
+    _check_dataset_dets("[dataset] multi-scale TTA", os.path.join(
+        out["tta"], "detections.pkl"), tds, tcfg.TEST.DETECTIONS_PER_IM)
+    calls = {k: len(ins_t.batch_ms(k)) for k in ("detect", "kps_aug heatmaps",
+                                                 "kps_aug decode")}
+    if calls != {"detect": p1, "kps_aug heatmaps": len(scales) * p2,
+                 "kps_aug decode": p2}:
+        raise RuntimeError(f"[dataset] multi-scale TTA: model calls {calls}")
+    print(f"[dataset] multi-scale TTA + KPS_AUG ({TTA_CFG}, scales {scales}, "
+          f"{n_clips} frames at {TTA_HW[0]}x{TTA_HW[1]}, B={b}): model calls "
+          f"{calls}, detect "
+          f"ms median {statistics.median(ins_t.batch_ms()):.2f}; CLI "
+          f"{tta_wall:.2f} s; peak memory {tta_peak:.2f} GiB; launches "
+          f"{tta_launches}", flush=True)
+    print(f"[dataset] phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+    return {k: launches[k] + stream_launches[k] + prop_launches[k]
+            + tta_launches[k] for k in launches}
+
+
 def main() -> int:
     import torch
 
@@ -1219,6 +1585,7 @@ def main() -> int:
     training = _train_steps(torch, "train", load_cfg(
         os.path.join(REPO, BOX_CFG), opts=["SOLVER.BASE_LR", TRAIN_SMOKE_LR]),
         3, seed=7)
+    dataset = phase_dataset(torch)
     phase_surface_kernels(torch)
     surface = phase_surface(torch)
     # The f32 models of the parity phases run conv1's CUDA-core kernel.
@@ -1229,10 +1596,11 @@ def main() -> int:
     if parity["conv1_f32"] == 0:
         raise RuntimeError(f"parity: launch counters {parity}: conv1's f32 "
                            "kernel never ran")
-    launches = {k: inference[k] + training[k] + surface[k]
+    launches = {k: inference[k] + training[k] + dataset[k] + surface[k]
                 for k in training}
     print(f"[launches] inference slice {inference}; training slice "
-          f"{training}; surface paths {surface}; parity phases {parity}; "
+          f"{training}; dataset paths {dataset}; surface paths {surface}; "
+          f"parity phases {parity}; "
           f"k3 path {results['roi_align_k3']['launches']}; sum of the "
           f"full-width paths {launches}", flush=True)
 

@@ -807,14 +807,13 @@ cudaError_t launch_bwd(unsigned blocks, cudaStream_t st, const BwdTable& t,
                        const void* grad, int C, int P, int s, bool vec) {
   auto* kernel = roi_align_bwd_kernel<TG, TO>;
   const size_t smem = bwd_dynamic_smem(P, s);
-  static size_t allowed = 0;   // dynamic bytes the kernel is set up for
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  // The opt-in above 48 KB is a property of the function on the current
+  // device, so it is set on every call (as conv1.cu does): a process-wide
+  // "already set" flag would let a second device launch without it.
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(blocks, (C + kCS - 1) / kCS), kBwdThreads, smem, st>>>(
       t, n_levels, order, seg, fp, smp, static_cast<const TG*>(grad), C, P, s,
       vec);

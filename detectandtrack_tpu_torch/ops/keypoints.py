@@ -1,10 +1,10 @@
-"""Keypoint heatmap decode on torch tensors and the joints' left/right flip
-permutation (port of `heatmaps_to_keypoints` and `flip_permutation` in
-detectandtrack_tpu/ops/keypoints.py, whose module imports JAX)."""
+"""Keypoint heatmap decode on torch tensors, the joints' left/right flip, and
+the host-side numpy helpers: OKS, OKS-NMS, keypoint flip and rescale (port
+of detectandtrack_tpu/ops/keypoints.py, whose module imports JAX)."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,102 @@ COCO_KEYPOINTS: List[str] = [
 ]
 
 _DATASETS = {"posetrack": POSETRACK_KEYPOINTS, "coco": COCO_KEYPOINTS}
+
+# COCO OKS per-keypoint sigmas (pycocotools); PoseTrack reuses the matching
+# body-joint sigmas with head_bottom/head_top mapped to ear-scale constants.
+COCO_OKS_SIGMAS = np.array(
+    [.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07,
+     .87, .87, .89, .89]) / 10.0
+POSETRACK_OKS_SIGMAS = np.array(
+    [.89, .87, 1.07, 1.07, .87, .89, .62, .72, .79, .79, .72, .62,
+     .79, .26, .79]) / 10.0
+
+
+def get_keypoints(dataset: str = "posetrack") -> Tuple[List[str], dict]:
+    """Joint names + left/right flip pairing (parity: `get_keypoints`)."""
+    names = _DATASETS[dataset]
+    flip_map = {}
+    for name in names:
+        if name.startswith("left_"):
+            right = "right_" + name[len("left_"):]
+            flip_map[name] = right
+            flip_map[right] = name
+    return names, flip_map
+
+
+def flip_keypoints(kps: np.ndarray, width: float,
+                   dataset: str = "posetrack") -> np.ndarray:
+    """Horizontally flip (..., K, 3) keypoints [x, y, v]."""
+    perm = flip_permutation(dataset)
+    out = np.array(kps[..., perm, :])
+    out[..., 0] = width - out[..., 0] - 1
+    return out
+
+
+def compute_oks(
+    pred: np.ndarray, gt: np.ndarray, gt_areas: np.ndarray,
+    sigmas: np.ndarray = POSETRACK_OKS_SIGMAS,
+) -> np.ndarray:
+    """OKS matrix between (P, K, >=2) predictions and (G, K, 3) GT poses.
+
+    GT visibility is gt[..., 2] > 0 (COCO convention). Used by the keypoint
+    mAP evaluator (parity: pycocotools OKS in json_dataset_evaluator).
+    """
+    p, g = pred.shape[0], gt.shape[0]
+    oks = np.zeros((p, g), dtype=np.float64)
+    var = (sigmas * 2) ** 2
+    for j in range(g):
+        vis = gt[j, :, 2] > 0
+        if not vis.any():
+            continue
+        for i in range(p):
+            dx = pred[i, :, 0] - gt[j, :, 0]
+            dy = pred[i, :, 1] - gt[j, :, 1]
+            e = (dx ** 2 + dy ** 2) / var / (gt_areas[j] + np.spacing(1)) / 2
+            oks[i, j] = np.mean(np.exp(-e[vis]))
+    return oks
+
+
+def nms_oks(kps: np.ndarray, rois: np.ndarray, thresh: float,
+            sigmas: np.ndarray = POSETRACK_OKS_SIGMAS) -> List[int]:
+    """Greedy pose-similarity NMS (parity: `lib/utils/keypoints.nms_oks`).
+
+    kps: (P, K, >=3) [x, y, score]; rois: (P, 4) the poses' boxes.
+    Instances are ranked by mean keypoint score; an instance whose OKS
+    against any kept higher-ranked instance (area = the kept instance's
+    roi) exceeds `thresh` is suppressed. Returns kept indices in rank
+    order. Not on the PoseTrack inference path (the model's box NMS covers
+    it), kept for lineage API parity.
+    """
+    kps = np.asarray(kps, np.float64)
+    rois = np.asarray(rois, np.float64)
+    inst_scores = kps[:, :, 2].mean(axis=1)
+    order = np.argsort(-inst_scores)
+    # Detectron +1 box-area convention (matches the lineage's nms_oks).
+    areas = np.maximum((rois[:, 2] - rois[:, 0] + 1)
+                       * (rois[:, 3] - rois[:, 1] + 1), 1.0)
+    keep: List[int] = []
+    for i in order:
+        ok = True
+        for j in keep:
+            gt = np.concatenate(
+                [kps[j, :, :2], np.ones((kps.shape[1], 1))], axis=1)
+            oks = compute_oks(kps[i:i + 1, :, :2], gt[None],
+                              areas[j:j + 1], sigmas)[0, 0]
+            if oks > thresh:
+                ok = False
+                break
+        if ok:
+            keep.append(int(i))
+    return keep
+
+
+def scale_keypoints(kps: np.ndarray, scale: float) -> np.ndarray:
+    """Rescale (..., K, >=2) keypoint coords (image-resize bookkeeping)."""
+    out = np.array(kps, dtype=np.float32)
+    out[..., 0] *= scale
+    out[..., 1] *= scale
+    return out
 
 
 def flip_permutation(dataset: str = "posetrack") -> np.ndarray:

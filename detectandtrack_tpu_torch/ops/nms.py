@@ -1,8 +1,10 @@
 """Fixed-budget greedy NMS and soft-NMS on torch tensors (port of
 `nms_fixed` and `soft_nms_fixed` in detectandtrack_tpu/ops/nms.py).
 
-Greedy NMS: stable score sort, the strictly upper-triangular suppression
-matrix S[j, i] = "j outranks i and IoU > thresh", and the Jacobi fixpoint
+The host `nms_numpy` (the multi-scale TTA merge) is a copy of the JAX
+package's. Greedy NMS: stable score sort, the strictly upper-triangular
+suppression matrix S[j, i] = "j outranks i and IoU > thresh", and the
+Jacobi fixpoint
 kept ← valid & ¬any_j(S[j, i] & kept[j]), which converges to exactly the
 greedy result. Soft-NMS: the bulk-confirmation fixpoint of the JAX package
 (see `soft_nms_fixed`). Leading dims are independent lanes (the JAX model
@@ -11,8 +13,9 @@ vmaps over them).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .boxes import bbox_overlaps
@@ -129,3 +132,28 @@ def soft_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
             torch.cat([x, x.new_zeros(x.shape[:-1] + (max_out - k,))], -1)
             for x in (idx, mask, out_scores))
     return idx, mask, out_scores
+
+
+def nms_numpy(boxes: np.ndarray, scores: np.ndarray, thresh: float
+              ) -> List[int]:
+    """Host greedy NMS with the Cython reference's semantics (port of
+    `nms_numpy` in detectandtrack_tpu/ops/nms.py): the +1 box-area
+    convention, suppression at a strict `ovr > thresh`, and the order of
+    `scores.argsort()[::-1]` (numpy's sort, reversed) → kept indices."""
+    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = scores.argsort()[::-1]
+    keep = []
+    while order.size > 0:
+        i = order[0]
+        keep.append(int(i))
+        xx1 = np.maximum(x1[i], x1[order[1:]])
+        yy1 = np.maximum(y1[i], y1[order[1:]])
+        xx2 = np.minimum(x2[i], x2[order[1:]])
+        yy2 = np.minimum(y2[i], y2[order[1:]])
+        w = np.maximum(0.0, xx2 - xx1 + 1)
+        h = np.maximum(0.0, yy2 - yy1 + 1)
+        inter = w * h
+        ovr = inter / (areas[i] + areas[order[1:]] - inter)
+        order = order[1:][ovr <= thresh]
+    return keep

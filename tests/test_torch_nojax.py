@@ -1,6 +1,7 @@
 """The port stands alone where JAX is not installed (the GPU machine):
 every module of detectandtrack_tpu_torch imports, the slice runs detect →
-track, and one training step of the small model runs on the CPU, in a
+track, one training step of the small model runs, and the CLI's
+demo-data, test and track modes run a generated set, on the CPU, in a
 process where `import jax`, `import flax`, `import detectandtrack_tpu` (the
 JAX package) and `import bench` all fail. No source file of the port and
 no line of chip_smoke.py imports the JAX package or `bench`."""
@@ -138,6 +139,34 @@ assert tmodel.mask_head.conv5_mask.weight.grad.abs().max() > 0
 """
 
 
+_CLI = _BLOCK_JAX + """
+import json, os, sys
+from detectandtrack_tpu_torch.cli.launch import main
+out = sys.argv[1]
+main(["--mode", "demo-data", "--out", os.path.join(out, "data", "synthetic")])
+opts = ["MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
+        "RESNETS.WIDTH_PER_GROUP", "8", "FPN.DIM", "32",
+        "FAST_RCNN.MLP_HEAD_DIM", "64",
+        "VIDEO.VIDEO_ON", "True", "VIDEO.NUM_FRAMES", "2",
+        "VIDEO.TIME_KERNEL_DIM", "[3, 1, 1, 1, 1]",
+        "RPN.PRE_NMS_TOP_N_TEST", "50", "RPN.POST_NMS_TOP_N_TEST", "16",
+        "TEST.DETECTIONS_PER_IM", "4", "TEST.SCORE_THRESH", "-1.0",
+        "TEST.SCALE", "64", "TEST.MAX_SIZE", "96",
+        "TEST.SHAPE_BUCKETS", "[[64, 96]]",
+        "KRCNN.NUM_STACKED_CONVS", "1", "KRCNN.CONV_HEAD_DIM", "16",
+        "DATA.ROOT", os.path.join(out, "data"),
+        "TEST.DATASETS", "[posetrack_synthetic_val]"]
+for mode in ("test", "track"):
+    main(["--mode", mode, "--device", "cpu", "--batch-size", "4",
+          "--out", os.path.join(out, "run")] + opts)
+with open(os.path.join(out, "run", "track_metrics.json")) as f:
+    metrics = json.load(f)
+assert metrics["num_gt_joints"] > 0, metrics
+assert len(os.listdir(os.path.join(out, "run", "tracks"))) == 2
+""" + _NOTHING_BLOCKED_LOADED + """print("cli ok")
+"""
+
+
 def _run(code, cwd, timeout=300):
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
@@ -156,6 +185,19 @@ def test_surface_runs_without_jax():
     proc = _run(_SURFACE, REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "surface ok" in proc.stdout
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """The port's CLI generates the synthetic sets (`demo-data`), detects
+    over the val set (`test`, the tiny R-18 model on the CPU) and tracks and
+    scores it (`track`), with jax/flax/the JAX package/bench blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _CLI, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "cli ok" in proc.stdout
+    assert os.path.exists(tmp_path / "data" / "synthetic_hard" / "val.json")
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
