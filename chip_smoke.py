@@ -5,9 +5,9 @@
 
 Phases, one line each (any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the three native sources from csrc/ (one compiler
-     each, in parallel: conv1.cu and roi_align.cu with nvcc for sm_90a,
-     the tracker's hungarian.cpp with g++);
+  2. build: compile the four native sources from csrc/ (one compiler
+     each, in parallel: conv1.cu, roi_align.cu and diag_roialign.cu with
+     nvcc for sm_90a, the tracker's hungarian.cpp with g++);
   3. conv1 against its plain version (pad + F.conv3d) at the main path's
      (2, 8, 800, 1344, 3) clip at t=3 and t=1 and an odd-sized t=1 clip:
      bf16 through the tensor-core kernel, f32 through the CUDA-core kernel;
@@ -32,6 +32,14 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      equal bit for bit, and a call whose output block is handed back from
      a freed NaN-filled one (every cell written); conv1's autograd Function
      against the plain conv's autograd, f32 with TF32 off;
+  6b. [diag] the diagnostic kernel (the port of tools/diag_roialign.py's
+     mini-kernel) on its path, the port's tools/diag_roialign.py at
+     n=4800, p=7 and p=14, launch counters read per variant; then each
+     variant (full, noswitch, nodma, nodot) against its plain version at
+     those shapes with its time, µs per pair and bound;
+  6c. [tools] the port's tools/bench_roialign.py and tools/bench_conv.py
+     once each at 3 iterations (no profiler runs here: capture_trace is
+     run by hand, as its own command);
   7. the inference slice at full width: the 3D R-50 T=8 keypoint model in
      bf16 with seeded random weights answers 4 requests of B=2 clips of
      8x800x1344 (3 through detect_with_proposals(run_rpn=True) with
@@ -72,7 +80,8 @@ Phases, one line each (any failure ends the run with a nonzero exit):
 Then it prints the kernels' JSON line (launches summed over the
 full-width paths, the [dataset] CLI runs among them; conv1's f32 kernel
 counted over the parity phases, K3 on its own path, the RoIAlign
-backward's prep kernel beside its gather; each with its time, its plain
+backward's prep kernel beside its gather, the diagnostic kernel per
+variant at p=7 with its tool's launches; each with its time, its plain
 version's, its bound and the one PyTorch call that computes the same
 function, where there is one),
 the nvidia-smi card line and, last, {"ok": true, "device": {...}}. It exits
@@ -82,7 +91,6 @@ nonzero without a CUDA device.
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -91,11 +99,6 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 BF16_REL_TOL = 2.0 ** -6    # bf16 outputs: 4 ulps at the largest |ref| >= 1
 F32_TOL = 1e-4              # f32 outputs of magnitude ~1
-# One H100 SXM (published dense peaks): bf16 tensor-core and f32 CUDA-core
-# peaks, HBM bandwidth.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 BOX_CFG = "configs/video/3d_R50_T8_tubes_kps.yaml"
 TRAIN_SMOKE_LR = 1e-4      # SOLVER.BASE_LR of the full-width training phase
 GRAD_REL_TOL = 1e-3         # card vs CPU gradients, of each one's max |g|
@@ -162,13 +165,6 @@ PARITY_TRAIN_CASES = [("R-18 T=2 golden", None, TRAIN_OPTS, GRAD_REL_TOL)] + [
                       (RPN_ONLY_CFG, GRAD_REL_TOL))]
 
 
-def _card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def _time_ms(torch, fn, iters=10, warmup=2) -> float:
     for _ in range(warmup):
         fn()
@@ -198,25 +194,6 @@ def _check(name, got, ref, dtype, torch):
     return err, tol
 
 
-def _bound(n_bytes, flops, peak_flops):
-    """The least time (ms) the card could take, and what sets it."""
-    by_bytes = n_bytes / PEAK_BYTES * 1e3
-    by_ops = flops / peak_flops * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                            "operations")
-
-
-def _conv1_bound(shape, t, dtype):
-    """conv1's bound: x and k7 read once, the output written once; 2 FLOP
-    per multiply-add, on the tensor cores in bf16, the CUDA cores in f32."""
-    b, nt, h, w, _ = shape
-    size = 2 if str(dtype).endswith("bfloat16") else 4
-    outs = b * nt * ((h + 1) // 2) * ((w + 1) // 2) * 64
-    n_bytes = (b * nt * h * w * 3 + t * 49 * 3 * 64 + outs) * size
-    peak = PEAK_BF16_FLOPS if size == 2 else PEAK_F32_FLOPS
-    return _bound(n_bytes, 2 * outs * t * 49 * 3, peak)
-
-
 def phase_conv1(torch, results):
     """conv1 against its plain version: the main path's clip at t=3 and
     t=1 and an odd-sized t=1 clip, bf16 (the tensor-core kernel) and f32
@@ -226,6 +203,7 @@ def phase_conv1(torch, results):
     import torch.nn.functional as F
     from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_cuda_core,
                                                         conv1_reference)
+    from detectandtrack_tpu_torch.utils import roofline
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [((2, 8, 800, 1344, 3), 3), ((2, 1, 800, 1344, 3), 1),
              ((1, 3, 97, 131, 3), 1)]
@@ -255,7 +233,8 @@ def phase_conv1(torch, results):
                 library_ms = _time_ms(torch, lambda: F.conv3d(
                     xp, wt, stride=(1, 2, 2)))
                 del xp
-                bound_ms, bound_by = _conv1_bound(shape, t, dtype)
+                bound_ms, bound_by = roofline.bound(
+                    roofline.conv1_work(shape, t, dtype))
                 line += (f", F.conv3d {library_ms:.3f} ms; bound "
                          f"{bound_ms:.3f} ms ({bound_by}), "
                          f"{100 * bound_ms / ms:.1f}% of it")
@@ -302,22 +281,6 @@ def _roi_cases(torch, k, b=2):
     return rois.cuda().contiguous(), levels.cuda().contiguous()
 
 
-def _roi_align_bound(torch, shapes, strides, rois, slabs, levels, p,
-                     dtype):
-    """K1's / K3's bound, from this run's rois: the distinct map cells
-    their samples' bilinear corners need (nonzero weight), each read once,
-    the rois and levels, and the output written once; 2 FLOP per corner of
-    each sample, on the CUDA cores."""
-    from detectandtrack_tpu_torch.kernels import roi_align as ra
-    taps = ra._taps(shapes, strides, rois.cpu().float(), slabs.cpu(),
-                    levels.cpu(), p, 2)
-    cells = torch.unique(torch.cat([idx[w != 0] for idx, w in taps]))
-    n, c = rois.shape[0], shapes[0][3]
-    size = 2 if dtype == torch.bfloat16 else 4
-    n_bytes = (cells.numel() + n * p * p) * c * size + n * 5 * 4
-    return _bound(n_bytes, n * p * p * c * 4 * 4 * 2, PEAK_F32_FLOPS)
-
-
 def phase_roi_align(torch, results):
     """K1 against its plain version at the box and keypoint stages, with
     its bound; K3 on the same rois (as (roi, slab) pairs) equal to K1 bit
@@ -325,6 +288,7 @@ def phase_roi_align(torch, results):
     from detectandtrack_tpu_torch.kernels.roi_align import (
         roi_align_multilevel, roi_align_multilevel_reference, roi_align_pairs,
         slab_of_rows)
+    from detectandtrack_tpu_torch.utils import roofline
     gen = torch.Generator(device="cuda").manual_seed(2)
     strides = [4, 8, 16, 32]
     maps32 = [torch.randn((16, 800 // s, 1344 // s, 256), device="cuda",
@@ -350,9 +314,9 @@ def phase_roi_align(torch, results):
                 maps, strides, rois, levels, p, 2))
             plain_ms = _time_ms(torch, lambda: roi_align_multilevel_reference(
                 maps, strides, rois, levels, p, 2), iters=3, warmup=1)
-            bound_ms, bound_by = _roi_align_bound(
-                torch, shapes, strides, rois.reshape(-1, 4), slabs,
-                levels.reshape(-1), p, dtype)
+            bound_ms, bound_by = roofline.bound(roofline.roi_align_work(
+                shapes, strides, rois.reshape(-1, 4), slabs,
+                levels.reshape(-1), p, dtype))
             print(f"[roi_align] {name}: max_abs_err={err:.3g} (tol {tol:.3g})"
                   f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
                   f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}%"
@@ -370,6 +334,7 @@ def phase_k3(torch, results):
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels import roi_align_ops as ops
     from detectandtrack_tpu_torch.kernels.roi_align import assign_fpn_levels
+    from detectandtrack_tpu_torch.utils import roofline
     gen = torch.Generator(device="cuda").manual_seed(4)
     t, r, p = 8, 300, 7
     strides = [4, 8, 16, 32]
@@ -432,9 +397,9 @@ def phase_k3(torch, results):
             print(f"[k3] {name}: max_abs_err={err:.3g} (tol {tol:.3g}) "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if label.startswith("roi_align_3d") and dtype == torch.bfloat16:
-                bound_ms, bound_by = _roi_align_bound(
-                    torch, [tuple(stack.shape)], [1], flat, frame,
-                    torch.zeros_like(frame), p, dtype)
+                bound_ms, bound_by = roofline.bound(roofline.roi_align_work(
+                    [tuple(stack.shape)], [1], flat, frame,
+                    torch.zeros_like(frame), p, dtype))
                 print(f"[k3] {name}: bound {bound_ms:.4f} ms ({bound_by}), "
                       f"{100 * bound_ms / ms:.1f}% of it", flush=True)
                 results["roi_align_k3"] = dict(
@@ -444,18 +409,6 @@ def phase_k3(torch, results):
         del stack
 
 
-def _backward_bound(grad, shapes, dtype):
-    """The RoIAlign backward's bound: grad read once, the level maps
-    written once in `dtype`, the pairs' rois, slabs and levels read once;
-    2 FLOP per corner tap (16 taps per grad element at s=2) on the CUDA
-    cores."""
-    out_size = 2 if str(dtype).endswith("bfloat16") else 4
-    n_bytes = (grad.numel() * grad.element_size()
-               + sum(a * b * c * d for a, b, c, d in shapes) * out_size
-               + grad.shape[0] * 24)
-    return _bound(n_bytes, grad.numel() * 32, PEAK_F32_FLOPS)
-
-
 def _backward_prep_check(torch, results, label, shapes, strides, rois, slabs,
                          levels, p):
     """The backward's prep kernel (keys and footprints) against its plain
@@ -463,6 +416,7 @@ def _backward_prep_check(torch, results, label, shapes, strides, rois, slabs,
     its time and bound: the rois, slabs and levels read and the keys and
     footprints written once; ~10 FLOP per sample position."""
     from detectandtrack_tpu_torch.kernels import roi_align as ra
+    from detectandtrack_tpu_torch.utils import roofline
 
     def kern():
         return ra.backward_prep(shapes, strides, rois, slabs, levels, p, 2)
@@ -481,8 +435,7 @@ def _backward_prep_check(torch, results, label, shapes, strides, rois, slabs,
     ms = _time_ms(torch, kern)
     plain_ms = _time_ms(torch, plain)
     n = rois.shape[0]
-    bound_ms, bound_by = _bound(n * (24 + 20), n * 2 * p * 2 * 10,
-                                PEAK_F32_FLOPS)
+    bound_ms, bound_by = roofline.bound(roofline.backward_prep_work(n, p))
     empty = int((got[1] == 0).all(1).sum())
     print(f"[backward] prep {label}: keys and footprints equal to the plain "
           f"rule ({empty} of {n} pairs without a valid sample), kernel "
@@ -528,6 +481,7 @@ def phase_backward(torch, results):
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import (conv1_autograd,
                                                         conv1_reference)
+    from detectandtrack_tpu_torch.utils import roofline
     gen = torch.Generator(device="cuda").manual_seed(5)
     strides = [4, 8, 16, 32]
     shapes = [(8, 800 // s, 1344 // s, 256) for s in strides]
@@ -565,7 +519,8 @@ def phase_backward(torch, results):
             err = max(e for e, _ in errs)
             ms = _time_ms(torch, kern)
             plain_ms = _time_ms(torch, plain, iters=3, warmup=1)
-            bound_ms, bound_by = _backward_bound(grad, shp, dtype)
+            bound_ms, bound_by = roofline.bound(roofline.backward_work(
+                grad, shp, dtype))
             print(f"[backward] {name}: max_abs_err={err:.3g} (tol "
                   f"{min(t for _, t in errs):.3g}) kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
@@ -600,6 +555,81 @@ def phase_backward(torch, results):
         errs.append(f"{what} {err:.3g} (tol {tol:.3g})")
     print(f"[backward] conv1 Function grads vs plain autograd, (1,8,400,672,3)"
           f" t=3 f32: {', '.join(errs)}", flush=True)
+
+
+DIAG_N = 4800               # the diagnostic tool's own pairs
+
+
+def phase_diag(torch, results):
+    """The diagnostic kernel (kernels/diag_roialign.py) on its path, the
+    tool tools/diag_roialign.py: its main() at n=4800, p=7 and p=14, with
+    the per-variant launch counters reset just before and read just after
+    (each must be > 0). Then each variant at those shapes against its plain
+    version (full and noswitch within the bf16 tolerance, nodma and nodot
+    bit for bit), CUDA-event time, µs per pair and bound → launches."""
+    from detectandtrack_tpu_torch.kernels import diag_roialign as dr
+    from detectandtrack_tpu_torch.tools import diag_roialign as tool
+    from detectandtrack_tpu_torch.utils import roofline
+    dr.diag_pool.launches = dict.fromkeys(dr.VARIANTS, 0)
+    for p in (7, 14):
+        tool.main([str(DIAG_N), str(p), "--iters", "5", "--warmup", "1"])
+    torch.cuda.synchronize()
+    launches = dict(dr.diag_pool.launches)
+    if not all(launches[v] > 0 for v in dr.VARIANTS):
+        raise RuntimeError(f"diag: launch counters {launches} after the "
+                           "tool's run")
+    feats, rois, levels = tool.make_inputs(DIAG_N)
+    for p in (7, 14):
+        for variant in dr.VARIANTS:
+            def kern():
+                return dr.diag_pool(feats, rois, levels, p, variant)
+
+            def plain():
+                return dr.diag_pool_reference(feats, rois, levels, p, variant)
+
+            name = f"diag {variant} n={DIAG_N} p={p}"
+            got, ref = kern(), plain()
+            if variant in ("full", "noswitch"):
+                err, tol = _check(name, got, ref, torch.bfloat16, torch)
+            else:
+                torch.cuda.synchronize()
+                err, tol = (got.float() - ref.float()).abs().max().item(), 0.0
+                if not torch.equal(got, ref):
+                    raise RuntimeError(f"{name}: differs from the plain "
+                                       f"version by {err} (must be exact)")
+            del got, ref
+            ms = _time_ms(torch, kern)
+            plain_ms = _time_ms(torch, plain, iters=2, warmup=1)
+            bound_ms, bound_by = roofline.bound(roofline.diag_work(
+                dr.patch_cells(rois, levels, len(feats), variant), DIAG_N, p,
+                feats[0].shape[3], variant))
+            print(f"[diag] {name}: max_abs_err={err:.3g} (tol {tol:.3g}) "
+                  f"kernel {ms:.3f} ms = {1e3 * ms / DIAG_N:.3f} us/pair, "
+                  f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.1f}% of it; "
+                  f"launches on the tool's path {launches[variant]}",
+                  flush=True)
+            if p == 7:
+                results[f"diag_{variant}"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    del feats, rois, levels
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tools(torch):
+    """The kernel tools' paths on the card, once each at few iterations:
+    tools/bench_roialign.py (K1 at the realistic roi mix) and
+    tools/bench_conv.py (keypoint-head conv, conv1 and res2)."""
+    from detectandtrack_tpu_torch.tools import bench_conv, bench_roialign
+    rows = bench_roialign.main(["3"]) + bench_conv.main(["all", "3"])
+    bad = [r for r in rows if not (r["ms"] > 0)]
+    if bad:
+        raise RuntimeError(f"tools: rows without a time {bad}")
+    torch.cuda.empty_cache()
+    print(f"[tools] bench_roialign and bench_conv ran: {len(rows)} rows",
+          flush=True)
 
 
 def _train_batch(torch, cfg, b, h, w, g, n_valid, seed):
@@ -935,6 +965,7 @@ def phase_surface_kernels(torch):
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1, conv1_reference
     from detectandtrack_tpu_torch.models.detector import build_model
+    from detectandtrack_tpu_torch.utils import roofline
     c4 = load_cfg(os.path.join(REPO, C4_CFG))
     mk = load_cfg(os.path.join(REPO, MASK_CFG))
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1009,7 +1040,8 @@ def phase_surface_kernels(torch):
             _, ms, _ = _kernel_vs_plain(torch, "surface-kernels", name, dtype,
                                         kern, plain)
             if name.startswith("roi_align_backward"):
-                bound_ms, bound_by = _backward_bound(grad, bwd_shapes, dtype)
+                bound_ms, bound_by = roofline.bound(roofline.backward_work(
+                    grad, bwd_shapes, dtype))
                 print(f"[surface-kernels] {name}: bound {bound_ms:.4f} ms "
                       f"({bound_by}), {100 * bound_ms / ms:.1f}% of it",
                       flush=True)
@@ -1379,8 +1411,9 @@ def phase_dataset(torch):
         read_posetrack_results)
     from detectandtrack_tpu_torch.utils.io import save_object
 
+    from detectandtrack_tpu_torch.utils.env import card_line
     t_phase = time.perf_counter()
-    card = _card_line()
+    card = card_line()
     data = os.path.join(DATASET_DIR, "data")
     hard = os.path.join(data, "synthetic_hard")
     generate_synthetic_posetrack(hard, num_videos=3, frames_per_video=13,
@@ -1553,14 +1586,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.kernels import _build
+    from detectandtrack_tpu_torch.utils.env import card_line
 
-    card = _card_line()
+    card = card_line()
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ["conv1", "roi_align", "hungarian"]
+    sources = ["conv1", "roi_align", "diag_roialign", "hungarian"]
     _build.build(sources)
     for name in sources:
         _build.load_library(name)
@@ -1577,6 +1611,8 @@ def main() -> int:
     phase_k3(torch, results)
     phase_backward(torch, results)
     torch.cuda.empty_cache()
+    diag = phase_diag(torch, results)
+    phase_tools(torch)
     inference = phase_slice(torch)
     # With random weights (no pretrained backbone, identity frozen-BN
     # affines) the unclipped config's own BASE_LR 0.005 blows the losses up
@@ -1601,8 +1637,8 @@ def main() -> int:
     print(f"[launches] inference slice {inference}; training slice "
           f"{training}; dataset paths {dataset}; surface paths {surface}; "
           f"parity phases {parity}; "
-          f"k3 path {results['roi_align_k3']['launches']}; sum of the "
-          f"full-width paths {launches}", flush=True)
+          f"k3 path {results['roi_align_k3']['launches']}; diagnostic "
+          f"tool {diag}; sum of the full-width paths {launches}", flush=True)
 
     ra = "detectandtrack_tpu/kernels/roi_align.py"
     k3 = dict(results["roi_align_k3"])
@@ -1632,7 +1668,11 @@ def main() -> int:
          "replaces": f"{ra}:566",
          "launches": launches["roi_align_backward_prep"],
          **results["roi_align_backward_prep"]},
-    ]
+    ] + [{"name": f"diag_roialign_{variant}", "route": "cuda",
+          "source": "detectandtrack_tpu_torch/csrc/diag_roialign.cu",
+          "replaces": "tools/diag_roialign.py:140",
+          "launches": diag[variant], **results[f"diag_{variant}"]}
+         for variant in diag]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

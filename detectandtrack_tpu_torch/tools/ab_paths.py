@@ -139,9 +139,7 @@ def main(argv=None) -> int:
         print(json.dumps(run_tree(args.trees[0], args.requests, args.steps)),
               flush=True)
         return 0
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(_by_path("dat_env", "utils/env.py").card_line(), flush=True)
     for tree in args.trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), os.path.abspath(tree),

@@ -9,7 +9,7 @@ S=2 on 50x84x1024 at P=14), bf16, it prints one JSON line per case: the
 whole `roi_align_backward` call, its three stages alone (the prep kernel,
 the sort and segment offsets, the gather kernel), each as CUDA-event
 milliseconds over 20 launches after 3 warm-ups, the host time per call
-(no synchronisation inside the loop), the bound `chip_smoke.py` states,
+(no synchronisation inside the loop), the bound (`utils/roofline`),
 and the tile visits the gather makes (the (tile, pair) pairs whose
 footprint meets, summed over the tiles of one channel slice). Needs a
 CUDA card; the card's `nvidia-smi` name and power limit are printed
@@ -82,9 +82,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, _REPO)
     from detectandtrack_tpu_torch.kernels import roi_align as ra
+    from detectandtrack_tpu_torch.utils import roofline
+    from detectandtrack_tpu_torch.utils.env import card_line
     from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
     smoke = _smoke()
-    print(smoke._card_line(), flush=True)
+    print(card_line(), flush=True)
     ra._lib()
     gen = torch.Generator(device="cuda").manual_seed(5)
     strides = [4, 8, 16, 32]
@@ -136,8 +138,8 @@ def main() -> int:
         for name, fn in stages.items():
             row[f"{name}_ms"] = _events_ms(torch, fn)
         row["host_ms_per_call"] = _host_ms(torch, stages["whole"])
-        row["bound_ms"], row["bound_by"] = smoke._backward_bound(grad, shapes,
-                                                                 dtype)
+        row["bound_ms"], row["bound_by"] = roofline.bound(
+            roofline.backward_work(grad, shapes, dtype))
         row["visits"] = _visits(torch, shapes, fp, keys)
         row["pairs"] = rois.shape[0]
         row["blocks"] = sum(s * -(-h // 8) * -(-w // 8)

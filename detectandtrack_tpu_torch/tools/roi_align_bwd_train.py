@@ -44,8 +44,9 @@ def _capture(torch) -> None:
                                                         make_train_step)
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.models.detector import build_model
+    from detectandtrack_tpu_torch.utils.env import card_line
     smoke = _smoke()
-    print(smoke._card_line(), flush=True)
+    print(card_line(), flush=True)
     cfg = load_cfg(os.path.join(_REPO, smoke.BOX_CFG),
                    opts=["SOLVER.BASE_LR", smoke.TRAIN_SMOKE_LR])
     calls = []

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from detectandtrack_tpu_torch.kernels import diag_roialign as dr
 from detectandtrack_tpu_torch.kernels import roi_align as ra
 from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_autograd,
                                                     conv1_cuda_core,
@@ -415,3 +416,29 @@ def test_box_loss_gradient_reaches_fpn_and_backbone_on_card(cuda):
         if k.startswith(("p", "box_head.")):
             tol = 1e-4 * float(cpu[k].abs().max()) + 1e-9
             assert (gpu[k] - cpu[k]).abs().max().item() <= tol, k
+
+
+@pytest.mark.parametrize("p", [3, 7, 14])
+@pytest.mark.parametrize("variant", dr.VARIANTS)
+def test_diag_pool_kernel_matches_plain(cuda, variant, p):
+    """The diagnostic kernel on clipped column offsets (x1 past 72 or below
+    0) and out-of-range levels, C=64: full and noswitch within the bf16
+    tolerance, nodma and nodot bit for bit; one launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    maps = [torch.randn((1, 64, 136, 64), device=cuda, generator=gen).to(
+        torch.bfloat16) for _ in range(4)]
+    n = 37
+    rois = torch.rand((4 * n,), device=cuda, generator=gen) * 100.0 - 10.0
+    levels = torch.randint(-2, 6, (n,), device=cuda, generator=gen,
+                           dtype=torch.int32)
+    before = dr.diag_pool.launches[variant]
+    got = dr.diag_pool(maps, rois, levels, p, variant)
+    assert dr.diag_pool.launches[variant] == before + 1
+    ref = dr.diag_pool_reference(maps, rois, levels, p, variant)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (n, p, p, 64)
+    if variant in ("nodma", "nodot"):
+        assert torch.equal(got, ref)
+    else:
+        assert (got.float() - ref.float()).abs().max().item() <= _tol(
+            ref, torch.bfloat16)

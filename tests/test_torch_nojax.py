@@ -233,6 +233,22 @@ _PORT_SOURCES = sorted(
         recursive=True)) + ["chip_smoke.py"]
 
 
+def test_walk_packages_reaches_the_tools_and_utils():
+    """The no-JAX import run above walks the package with pkgutil: it
+    reaches the diagnostic kernel, the profiling utilities and every tool."""
+    import pkgutil
+
+    import detectandtrack_tpu_torch as pkg
+    mods = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                  pkg.__name__ + ".")}
+    want = {f"detectandtrack_tpu_torch.{m}" for m in (
+        "kernels.diag_roialign", "utils.env", "utils.profiling",
+        "utils.roofline", "tools.diag_roialign", "tools.bench_roialign",
+        "tools.bench_conv", "tools.capture_trace", "tools.trace_summary",
+        "tools.conv_roofline")}
+    assert want <= mods, want - mods
+
+
 @pytest.mark.parametrize("path", _PORT_SOURCES)
 def test_port_source_imports_no_jax_package(path):
     """The port keeps its own copies of what it needs: no import statement
