@@ -61,6 +61,20 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      frame once, finite outputs and metrics, stream track ids equal to
      test + track, eval of the written tracks equal to track's metrics;
      printed: wall time, frames/s, per-batch model time, peak memory;
+  8c. [finetune] the fine-tuning path through the port's CLI, bf16, in a
+     fresh out_smoke/finetune: a Detectron .pkl of the seeded 2D R-50 FPN
+     model (configs/video/2d_R50_FPN_kps.yaml) imported into the main 3D
+     config (--mode import-weights: nothing missing or unused, the t=3
+     kernels mean-inflated, K2 with the inflated conv1 equal to K2 with
+     the 2D kernel on a time-constant clip's frames 1-6); --mode train
+     from it on [dataset]'s 720x1280 set (B=1, BASE_LR 1e-4, clip 10, 4
+     steps, a checkpoint every 2), run again to 6 (resumes from step 4,
+     takes 2 steps), the final weights through one --mode test batch;
+     then the synthetic smoke config trained 150 steps through the CLI
+     (tools/smoke_learn.py), tested and tracked, held to the JAX CLI's
+     scores on the same recipe. Checked: launch counters = steps x the
+     per-step counts of 8, checkpoints, finite losses every step;
+     printed: host and CUDA-event step times, their ratio, peak memory;
   9. [surface] the rest of the model surface: the kernels against their
      plain versions at the shapes its paths give them, read from the
      configs (conv1 at t=1 on 800x1344; K1 on C4's one 1024-wide
@@ -78,7 +92,7 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      each of the golden model and of the mask, C4, center-frame and
      RPN-only branches (losses and every gradient).
 Then it prints the kernels' JSON line (launches summed over the
-full-width paths, the [dataset] CLI runs among them; conv1's f32 kernel
+full-width paths, the [dataset] and [finetune] CLI runs among them; conv1's f32 kernel
 counted over the parity phases, K3 on its own path, the RoIAlign
 backward's prep kernel beside its gather, the diagnostic kernel per
 variant at p=7 with its tool's launches; each with its time, its plain
@@ -1250,6 +1264,21 @@ def _merge_sets(out_dir, parts, name):
         json.dump(merged, f)
 
 
+def _hard_set(data):
+    """The hard synthetic set at DATASET_HW under `data`: three videos of
+    13 frames and one of 5, as posetrack_synthetic_hard_val."""
+    from detectandtrack_tpu_torch.data.synthetic import (
+        generate_synthetic_posetrack)
+    hard = os.path.join(data, "synthetic_hard")
+    generate_synthetic_posetrack(hard, num_videos=3, frames_per_video=13,
+                                 image_hw=DATASET_HW, seed=0, hard=True,
+                                 json_name="long.json")
+    generate_synthetic_posetrack(hard, num_videos=1, frames_per_video=5,
+                                 image_hw=DATASET_HW, seed=1, hard=True,
+                                 json_name="short.json", video_prefix="short")
+    _merge_sets(hard, ["long.json", "short.json"], "val.json")
+
+
 def _windows(n_frames, span):
     """run_inference's tiling: non-overlapping windows, an end-aligned
     tail, one padded window for a video shorter than the span."""
@@ -1336,21 +1365,9 @@ class _Instrumented:
 def _cli_run(torch, tag, mode, cfg_path, out, opts, batch, want=None):
     """One port CLI call `--mode mode` on the card; with `want`, the launch
     counters of the run must equal it → (launches, wall s, peak GiB)."""
-    from detectandtrack_tpu_torch.cli.launch import main as cli
-    argv = ["--mode", mode, "--cfg", os.path.join(REPO, cfg_path), "--out",
-            out, "--device", "cuda", "--batch-size", str(batch)] + opts
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
-    t0 = time.perf_counter()
-    cli(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _read_counters()
-    if want is not None and launches != want:
-        raise RuntimeError(f"[dataset] {tag}: launch counters {launches}, "
-                           f"expected {want}")
-    return launches, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+    return _cli_counted(torch, [
+        "--mode", mode, "--cfg", os.path.join(REPO, cfg_path), "--out", out,
+        "--batch-size", str(batch)] + opts, want, f"[dataset] {tag}")[1:]
 
 
 def _check_dataset_dets(tag, dets, ds, d):
@@ -1415,14 +1432,7 @@ def phase_dataset(torch):
     t_phase = time.perf_counter()
     card = card_line()
     data = os.path.join(DATASET_DIR, "data")
-    hard = os.path.join(data, "synthetic_hard")
-    generate_synthetic_posetrack(hard, num_videos=3, frames_per_video=13,
-                                 image_hw=DATASET_HW, seed=0, hard=True,
-                                 json_name="long.json")
-    generate_synthetic_posetrack(hard, num_videos=1, frames_per_video=5,
-                                 image_hw=DATASET_HW, seed=1, hard=True,
-                                 json_name="short.json", video_prefix="short")
-    _merge_sets(hard, ["long.json", "short.json"], "val.json")
+    _hard_set(data)
     opts = DATASET_OPTS + ["DATA.ROOT", data,
                            "TEST.DATASETS", "[posetrack_synthetic_hard_val]"]
     cfg = load_cfg(os.path.join(REPO, DATASET_CFG), opts=opts)
@@ -1573,6 +1583,361 @@ def phase_dataset(torch):
             + tta_launches[k] for k in launches}
 
 
+FINETUNE_DIR = os.path.join(DATASET_DIR, "finetune")
+FINETUNE_2D_CFG = "configs/video/2d_R50_FPN_kps.yaml"
+FINETUNE_STEPS, FINETUNE_RESUMED_STEPS, FINETUNE_PERIOD = 4, 2, 2
+# The seeded 2D weights, imported, meet the hard set's GT with losses near
+# 1.2e3; unclipped, even BASE_LR 1e-4 takes them to NaN by the fourth step
+# (measured on the card). A global-norm clip of 10, as the synthetic
+# configs train with, keeps every step finite; it also makes the frozen
+# stages' gradients computed (the clip reads them), as JAX's clip does.
+FINETUNE_CLIP = 10.0
+LEARN_CFG = "configs/video/synthetic_smoke.yaml"
+LEARN_STEPS = 150          # the synthetic end-to-end recipe (SKILL.md)
+# The JAX package's CLI on the same recipe (150 steps, seed 3), run on a
+# CPU, scores mAP 65.78, MOTA -32.60, box AP50 71.60, keypoint AP 57.98:
+# at 150 steps the model is half-trained (1000 steps reach mAP 99.7), and
+# MOTA still swings by tens of points between runs. The port is held to
+# that reference with a margin of about 15 points on the three
+# detection-quality metrics; an untrained model scores near 0 on them.
+LEARN_FLOORS = {"mAP": 50.0, "box_AP50": 55.0, "keypoint_AP": 40.0}
+
+
+class _StepTimer:
+    """Wraps the port's `make_train_step` for the CLI runs inside the `with`
+    block: every step's `state.step`, the host clock at its start and CUDA
+    events around it (the CLI's loop runs unchanged: no added sync)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.steps, self.starts, self.events, self.metrics = [], [], [], []
+
+    def __enter__(self):
+        from detectandtrack_tpu_torch.engine import train as ttrain
+        self.mod, self.saved = ttrain, ttrain.make_train_step
+        torch, inst = self.torch, self
+
+        def make_train_step(model, cfg):
+            fn = inst.saved(model, cfg)
+
+            def step(state, batch, draws=None):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                inst.steps.append(state.step)
+                inst.starts.append(time.perf_counter())
+                start.record()
+                out = fn(state, batch, draws)
+                end.record()
+                inst.events.append((start, end))
+                inst.metrics.append(out[1])
+                return out
+
+            return step
+
+        ttrain.make_train_step = make_train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.saved
+
+    def losses(self):
+        """Every step's loss terms (read after the runs), with the steps
+        whose terms are not all finite."""
+        vals = [{k: float(v) for k, v in m.items()} for m in self.metrics]
+        bad = [i for i, d in enumerate(vals)
+               if not all(np.isfinite(v) for v in d.values())]
+        return vals, bad
+
+    def times_ms(self, first, last):
+        """(host ms, CUDA-event ms) of steps first..last-1: the host clock
+        from a step's start to the next one's, the events around it."""
+        self.torch.cuda.synchronize()
+        host = [1e3 * (self.starts[i + 1] - self.starts[i])
+                for i in range(first, last)]
+        dev = [s.elapsed_time(e) for s, e in self.events[first:last]]
+        return host, dev
+
+
+def _cli_counted(torch, argv, want=None, tag="[finetune]"):
+    """One port CLI call on the card with the launch counters reset → (its
+    return value, launches, wall s, peak GiB); with `want`, the counters
+    must equal it."""
+    from detectandtrack_tpu_torch.cli.launch import main as cli
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    out = cli(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    if want is not None and launches != want:
+        raise RuntimeError(f"{tag} {argv[:2]}: launch counters {launches}, "
+                           f"expected {want}")
+    return out, launches, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+class _LogLines(list):
+    """Collects the messages of the port's loggers inside a `with`."""
+
+    def __enter__(self):
+        import logging
+        inst = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                inst.append(record.getMessage())
+
+        self.handler = Handler()
+        self.logger = logging.getLogger("detectandtrack_tpu_torch")
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def phase_finetune(torch, per_step):
+    """The fine-tuning path through the port's CLI, bf16, in a fresh
+    directory: a Detectron `.pkl` of the seeded 2D R-50 FPN model, imported
+    into the main 3D config (`--mode import-weights`: every leaf mapped,
+    the t=3 kernels mean-inflated, K2 with the inflated conv1 equal to K2
+    with the 2D kernel on a time-constant clip's frames 1-6); `--mode
+    train` from it on the [dataset] generator's 720x1280 hard set (B=1,
+    BASE_LR 1e-4, CLIP_GRAD_NORM 10, 4 steps, a checkpoint every 2),
+    resumed to 6 (exactly 2
+    more steps), the final weights answering one `--mode test` batch; then
+    the synthetic smoke config trained 150 steps through the CLI, tested
+    and tracked, held to LEARN_FLOORS. Launch counters: steps
+    x `per_step` (the [train] phase's; the clip adds no launch: conv1's
+    gradient is the plain conv's), windows for the test runs → the
+    launches summed over the phase."""
+    import shutil
+
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.data.posetrack import get_dataset
+    from detectandtrack_tpu_torch.kernels.conv1 import conv1
+    from detectandtrack_tpu_torch.models.detector import build_model
+    from detectandtrack_tpu_torch.tools import smoke_learn
+    from detectandtrack_tpu_torch.utils import detectron_import as tdi
+    from detectandtrack_tpu_torch.utils.checkpoint import _flatten
+    from detectandtrack_tpu_torch.utils.env import card_line
+    from detectandtrack_tpu_torch.utils.io import load_object
+    from detectandtrack_tpu_torch.utils.params import (
+        state_dict_to_jax_params)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    shutil.rmtree(FINETUNE_DIR, ignore_errors=True)   # or AUTO_RESUME resumes
+    data, run = (os.path.join(FINETUNE_DIR, d) for d in ("data", "run"))
+    total: dict = {}
+
+    # 1. The Detectron .pkl of the seeded 2D model.
+    cfg2 = load_cfg(os.path.join(REPO, FINETUNE_2D_CFG))
+    model2 = build_model(cfg2, device="cuda", seed=0)
+    pkl = os.path.join(FINETUNE_DIR, "r50_fpn_kps_2d.pkl")
+    os.makedirs(FINETUNE_DIR)
+    tdi.save_detectron_pkl(pkl, model2, cfg2)
+    flat2 = _flatten(state_dict_to_jax_params(model2.state_dict(), model2))
+    k2d = model2.backbone.conv1.conv.weight.detach()
+    del model2
+
+    # 2. --mode import-weights into the main 3D config.
+    reports = []
+    real_import = tdi.import_detectron_weights
+
+    def import_and_keep(*args, **kw):
+        out = real_import(*args, **kw)
+        reports.append(out[1])
+        return out
+
+    tdi.import_detectron_weights = import_and_keep
+    try:
+        imported, launches, wall_import, _ = _cli_counted(
+            torch, ["--mode", "import-weights", "--cfg",
+                    os.path.join(REPO, BOX_CFG), "--weights", pkl, "--out",
+                    run])
+    finally:
+        tdi.import_detectron_weights = real_import
+    report = reports[0]
+    if report["missing"] or report["unused"] or not report["mapped"]:
+        raise RuntimeError(f"[finetune] import: missing {report['missing']}, "
+                           f"unused {report['unused']}")
+    done = {m.split(" ")[0] for m in report["mapped"]} | {
+        m.split(":")[0] for m in report["surgery"]}
+    convs = [k[len("params/"):] for k in flat2
+             if k.split("/")[1] in ("backbone", "fpn", "rpn_head")
+             and k.endswith("kernel")]
+    if not convs or any(k not in done for k in convs):
+        raise RuntimeError("[finetune] import: backbone/FPN/RPN kernels not "
+                           f"mapped: {[k for k in convs if k not in done]}")
+    inflated = 0
+    with np.load(imported) as npz:
+        for key in npz.files:
+            arr = npz[key]
+            if arr.ndim == 5 and arr.shape[0] == 3 and key in flat2:
+                want = np.repeat(flat2[key], 3, axis=0) / np.float32(3.0)
+                if not np.array_equal(arr, want):
+                    raise RuntimeError(f"[finetune] import: {key} is not the "
+                                       "mean inflation of the 2D kernel")
+                inflated += 1
+        k3d = torch.from_numpy(npz["params/backbone/conv1/conv/kernel"])
+    if inflated < 2 or tuple(k3d.shape) != (3, 7, 7, 3, 64):
+        raise RuntimeError(f"[finetune] import: {inflated} t=3 kernels, "
+                           f"conv1 {tuple(k3d.shape)}")
+    h, w = load_cfg(os.path.join(REPO, BOX_CFG)).TEST.SHAPE_BUCKETS[0]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    frame = torch.randn((1, 1, h, w, 3), device="cuda", generator=gen)
+    y3 = conv1(frame.expand(1, 8, h, w, 3).contiguous(), k3d.cuda(), 3,
+               torch.bfloat16)
+    y1 = conv1(frame, k2d, 1, torch.bfloat16)
+    err, tol = _check("[finetune] K2 inflated conv1 on frames 1-6",
+                      y3[:, 1:7], y1.expand(1, 6, *y1.shape[2:]),
+                      torch.bfloat16, torch)
+    print(f"[finetune] import-weights {FINETUNE_2D_CFG} .pkl -> {BOX_CFG}: "
+          f"{len(report['mapped'])} mapped, {len(report['surgery'])} "
+          f"surgeries, 0 missing, 0 unused, {inflated} t=3 kernels mean-"
+          f"inflated; K2 with the inflated conv1 on a time-constant "
+          f"8x{h}x{w} clip equals K2 with the 2D kernel on frames 1-6: "
+          f"max_abs_err={err:.3g} (tol {tol:.3g}); CLI {wall_import:.1f} s",
+          flush=True)
+    del y3, y1, frame
+
+    # 3. --mode train on the 720x1280 hard set, then resumed.
+    _hard_set(data)
+    opts = ["--cfg", os.path.join(REPO, BOX_CFG), "--out", run,
+            "--weights", imported] + DATASET_OPTS + [
+        "DATA.ROOT", data, "TRAIN.DATASETS", "[posetrack_synthetic_hard_val]",
+        "TEST.DATASETS", "[posetrack_synthetic_hard_val]",
+        "TRAIN.IMS_PER_BATCH", "1", "SOLVER.BASE_LR", str(TRAIN_SMOKE_LR),
+        "SOLVER.CLIP_GRAD_NORM", str(FINETUNE_CLIP),
+        "TRAIN.CHECKPOINT_PERIOD", str(FINETUNE_PERIOD)]
+    n_all = FINETUNE_STEPS + FINETUNE_RESUMED_STEPS
+    with _StepTimer(torch) as timer, _LogLines() as logs:
+        _, launches, wall_train, peak = _cli_counted(
+            torch, ["--mode", "train"] + opts + [
+                "SOLVER.MAX_ITER", str(FINETUNE_STEPS)],
+            {k: FINETUNE_STEPS * v for k, v in per_step.items()})
+        _add(total, launches)
+        host, dev = timer.times_ms(1, FINETUNE_STEPS - 1)
+        _, launches, wall_resume, _ = _cli_counted(
+            torch, ["--mode", "train"] + opts + ["SOLVER.MAX_ITER", str(n_all)],
+            {k: FINETUNE_RESUMED_STEPS * v for k, v in per_step.items()})
+        _add(total, launches)
+    if timer.steps != list(range(n_all)) or not any(
+            f"auto-resumed from step {FINETUNE_STEPS}" in m for m in logs):
+        raise RuntimeError(f"[finetune] train: steps {timer.steps}, resume "
+                           f"not logged: {logs}")
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    want_ckpts = [f"{s}.pt" for s in range(FINETUNE_PERIOD, n_all + 1,
+                                           FINETUNE_PERIOD)]
+    if ckpts != sorted(want_ckpts):
+        raise RuntimeError(f"[finetune] train: checkpoints {ckpts}")
+    with open(os.path.join(run, "training_stats.jsonl")) as f:
+        stats = [json.loads(line) for line in f]
+    bad = [k for st in stats for k, v in st.items()
+           if k.startswith("loss_") and not np.isfinite(v)]
+    losses, bad_steps = timer.losses()
+    if not stats or bad or bad_steps:
+        raise RuntimeError(f"[finetune] training stats {stats}; steps "
+                           f"{bad_steps} with non-finite losses: {losses}")
+    final = os.path.join(run, "model_final.npz")
+    with np.load(final) as npz:
+        bad = [k for k in npz.files if not np.isfinite(npz[k]).all()]
+    if bad:
+        raise RuntimeError(f"[finetune] model_final.npz: {len(bad)} arrays "
+                           f"not finite, e.g. {bad[:5]}")
+    host_ms, dev_ms = statistics.median(host), statistics.median(dev)
+    print(f"[finetune] train {BOX_CFG} bf16 B=1 on {DATASET_HW[0]}x"
+          f"{DATASET_HW[1]} frames (bucket {h}x{w}), BASE_LR "
+          f"{TRAIN_SMOKE_LR}, CLIP_GRAD_NORM {FINETUNE_CLIP}: "
+          f"{FINETUNE_STEPS} steps, checkpoints every "
+          f"{FINETUNE_PERIOD}, resumed from step {FINETUNE_STEPS} for "
+          f"{FINETUNE_RESUMED_STEPS} more (steps {timer.steps}, checkpoints "
+          f"{ckpts}); steps 1-{FINETUNE_STEPS - 2}: host ms "
+          f"{[round(v, 2) for v in host]} (median {host_ms:.2f}), CUDA-event "
+          f"ms {[round(v, 2) for v in dev]} (median {dev_ms:.2f}), card busy "
+          f"share {100 * dev_ms / host_ms:.1f}%; CLI {wall_train:.1f} s + "
+          f"{wall_resume:.1f} s; peak memory {peak:.2f} GiB; loss_total "
+          f"by step {[round(d['loss_total'], 3) for d in losses]} "
+          f"({card})", flush=True)
+
+    ds = get_dataset("posetrack_synthetic_hard_val", data)
+    vid = ds.videos()[0]
+    n_win = _windows(len(ds.video_frames(vid)), 8)
+    if n_win > 2:
+        raise RuntimeError(f"[finetune] test: {vid} has {n_win} windows")
+    _, launches, _, _ = _cli_counted(
+        torch, ["--mode", "test", "--batch-size", "2", "--video-range", "0:1",
+                "--weights", final] + opts[:4] + opts[6:],
+        {"conv1": 1, "conv1_f32": 0, "roi_align": 2, "roi_align_backward": 0,
+         "roi_align_backward_prep": 0})
+    _add(total, launches)
+    dets = load_object(os.path.join(run, "detections.pkl"))
+    frames = dets.get(vid, [])
+    bad = sorted({k for fr in frames for k in ("boxes", "scores",
+                                                "keypoints")
+                  if not np.isfinite(fr[k]).all()})
+    if list(dets) != [vid] or len(frames) != len(ds.video_frames(vid)) or bad:
+        raise RuntimeError(f"[finetune] test of model_final.npz: videos "
+                           f"{list(dets)} (want [{vid}]), {len(frames)} "
+                           f"frames of {len(ds.video_frames(vid))}, not "
+                           f"finite: {bad}")
+    print(f"[finetune] model_final.npz answers one --mode test batch "
+          f"({n_win} windows of {vid}): {len(frames)} frames, "
+          f"{sum(int(fr['valid'].sum()) for fr in frames)} valid detections",
+          flush=True)
+
+    # 4. Learn: the synthetic smoke config, 150 steps, test, track.
+    learn_dir = os.path.join(FINETUNE_DIR, "learn")
+    lcfg = load_cfg(os.path.join(REPO, LEARN_CFG))
+    lds_root = os.path.join(learn_dir, "data")
+    with _StepTimer(torch) as ltimer:
+        torch.cuda.synchronize()
+        _reset_counters()
+        got = smoke_learn.learn(learn_dir, LEARN_STEPS, lcfg.RNG_SEED, "cuda")
+        torch.cuda.synchronize()
+        launches = _read_counters()
+        lhost, ldev = ltimer.times_ms(1, LEARN_STEPS - 1)
+    lds = get_dataset(lcfg.TEST.DATASETS[0], lds_root)
+    l_win = sum(_windows(len(lds.video_frames(v)), lcfg.VIDEO.NUM_FRAMES)
+                for v in lds.videos())
+    l_batch = -(-l_win // 2)
+    heads = 2                                   # box and keypoint stages
+    want = {"conv1": 0, "conv1_f32": LEARN_STEPS + l_batch,
+            "roi_align": heads * (LEARN_STEPS + l_batch),
+            "roi_align_backward": heads * LEARN_STEPS,
+            "roi_align_backward_prep": heads * LEARN_STEPS}
+    if launches != want:
+        raise RuntimeError(f"[finetune] learn: launch counters {launches}, "
+                           f"expected {want}")
+    _add(total, launches)
+    lh, ld = statistics.median(lhost), statistics.median(ldev)
+    print(f"[finetune] learn (tools/smoke_learn.py): {LEARN_CFG} "
+          f"({lcfg.MODEL.COMPUTE_DTYPE}, B={lcfg.TRAIN.IMS_PER_BATCH}, seed "
+          f"{lcfg.RNG_SEED}) trained {LEARN_STEPS} steps through --mode train "
+          f"in {got['train_s']:.1f} s (step host ms median {lh:.2f}, "
+          f"CUDA-event ms median {ld:.2f}, ratio {100 * ld / lh:.1f}%), then "
+          f"--mode test ({l_batch} batches) and --mode track: mAP "
+          f"{got['mAP']:.2f}, MOTA {got['MOTA']:.2f}, box AP50 "
+          f"{got['box_AP50']:.2f}, keypoint AP {got['keypoint_AP']:.2f} "
+          f"(floors {LEARN_FLOORS}); launches {launches}", flush=True)
+    low = {k: got[k] for k, floor in LEARN_FLOORS.items()
+           if not got[k] >= floor}
+    if low:
+        raise RuntimeError(f"[finetune] learn: {low} below the floors "
+                           f"{LEARN_FLOORS}")
+    shutil.rmtree(FINETUNE_DIR, ignore_errors=True)
+    print(f"[finetune] phase wall {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total} ({card})", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1622,6 +1987,7 @@ def main() -> int:
         os.path.join(REPO, BOX_CFG), opts=["SOLVER.BASE_LR", TRAIN_SMOKE_LR]),
         3, seed=7)
     dataset = phase_dataset(torch)
+    finetune = phase_finetune(torch, {k: v // 3 for k, v in training.items()})
     phase_surface_kernels(torch)
     surface = phase_surface(torch)
     # The f32 models of the parity phases run conv1's CUDA-core kernel.
@@ -1633,9 +1999,10 @@ def main() -> int:
         raise RuntimeError(f"parity: launch counters {parity}: conv1's f32 "
                            "kernel never ran")
     launches = {k: inference[k] + training[k] + dataset[k] + surface[k]
-                for k in training}
+                + finetune[k] for k in training}
     print(f"[launches] inference slice {inference}; training slice "
-          f"{training}; dataset paths {dataset}; surface paths {surface}; "
+          f"{training}; dataset paths {dataset}; fine-tuning path "
+          f"{finetune}; surface paths {surface}; "
           f"parity phases {parity}; "
           f"k3 path {results['roi_align_k3']['launches']}; diagnostic "
           f"tool {diag}; sum of the full-width paths {launches}", flush=True)
@@ -1650,7 +2017,8 @@ def main() -> int:
         {"name": "conv1_f32", "route": "cuda",
          "source": "detectandtrack_tpu_torch/csrc/conv1.cu",
          "replaces": "detectandtrack_tpu/kernels/conv1.py:167",
-         "launches": parity["conv1_f32"], **results["conv1_f32"]},
+         "launches": parity["conv1_f32"] + launches["conv1_f32"],
+         **results["conv1_f32"]},
         {"name": "roi_align_multilevel", "route": "cuda",
          "source": "detectandtrack_tpu_torch/csrc/roi_align.cu",
          "replaces": f"{ra}:477",

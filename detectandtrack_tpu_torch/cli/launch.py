@@ -2,7 +2,8 @@
 `python -m detectandtrack_tpu_torch.cli.launch --cfg ... --mode ...`.
 
 Port of detectandtrack_tpu/cli/launch.py: one entry point that merges the
-YAML config and dotted overrides, then runs dataset inference (test),
+YAML config and dotted overrides, then runs training (train), the
+Detectron weight import (import-weights), dataset inference (test),
 stage-2 linking and evaluation (track), scoring of saved tracks (eval),
 online detect+track (stream) or the synthetic-data generator (demo-data).
 The model runs on `--device` (default `cuda`; `cpu` must be asked for);
@@ -10,34 +11,36 @@ with `cuda` and no CUDA device the launcher stops rather than run on the
 CPU.
 
 Usage:
+  launch --cfg ... --mode import-weights --weights detectron.pkl
+  launch --cfg ... --mode train [--weights imported_weights.npz]
   launch --cfg ... --mode test --weights model_final.npz [--batch-size N]
-  launch --cfg ... --mode track [--detections dets.pkl]
+                   [--subprocess-shards N]
+  launch --cfg ... --mode track [--detections dets.pkl] [--vis]
   launch --cfg ... --mode eval [--detections tracks_dir]
-  launch --cfg ... --mode stream --weights model_final.npz
+  launch --cfg ... --mode stream --weights model_final.npz [--vis]
   launch --mode demo-data --out data/synthetic
   (--device cpu: run the model on the CPU)
 
 `--weights` takes the JAX package's flat `.npz` (flax naming), so a JAX
-`model_final.npz` runs here unchanged.
+`model_final.npz` runs here unchanged, and the port's `model_final.npz`
+and `imported_weights.npz` load into the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import logging
 import os
+import sys
 from typing import Optional
 
 _NOT_PORTED = {
-    # mode or flag → the ROADMAP.md §1 item that brings it
-    "train": "item 3 (the rest of the CLI: mode_train with a torch "
-             "prefetcher in place of DeviceLoader)",
-    "import-weights": "item 2 (weights: the Detectron .pkl import)",
-    "bench": "item 1 (the port's bench)",
-    "--subprocess-shards": "item 3 (the rest of the CLI: "
-                           "subprocess_utils.py)",
-    "--vis": "item 3 (the rest of the CLI: utils/vis.py)",
+    # mode → what brings it
+    "bench": "the port's bench and its cells are the work of a benchmark "
+             "change (ROADMAP.md), not of the port's CLI",
 }
 
 
@@ -49,7 +52,8 @@ def parse_args(argv=None):
                    choices=["train", "test", "track", "stream", "eval", "bench",
                             "demo-data", "import-weights"])
     p.add_argument("--weights", default=None,
-                   help="npz weights (overrides cfg TEST.WEIGHTS)")
+                   help="npz weights (overrides cfg TRAIN/TEST.WEIGHTS); "
+                        "the Detectron .pkl for --mode import-weights")
     p.add_argument("--detections", default=None,
                    help="detections pickle for --mode track; saved-tracks dir "
                         "for --mode eval")
@@ -63,8 +67,10 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=1,
                    help="clips per model call in test/stream mode")
     p.add_argument("--subprocess-shards", type=int, default=0,
-                   help="not ported yet")
-    p.add_argument("--vis", action="store_true", help="not ported yet")
+                   help="fan dataset inference (test mode) out over N "
+                        "child processes, one video range each")
+    p.add_argument("--vis", action="store_true",
+                   help="write annotated frames (track/stream mode)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs (default cuda; no fallback)")
     p.add_argument("opts", nargs="*",
@@ -95,11 +101,12 @@ def _device(args) -> str:
     return args.device
 
 
-def _init_model(cfg, weights: Optional[str], seed: int, device: str):
+def _init_model(cfg, weights: Optional[str], seed: int, device: str,
+                train: bool = False):
     """The port's model on `device`, seeded, with `weights` loaded."""
     from ..models.detector import build_model
     from ..utils.checkpoint import load_weights_npz
-    model = build_model(cfg, device=device, seed=seed)
+    model = build_model(cfg, device=device, seed=seed, train=train)
     if weights:
         load_weights_npz(weights, model)
     return model
@@ -112,6 +119,99 @@ def _video_range(args):
     return int(lo), int(hi)
 
 
+def mode_train(args, cfg):
+    """SGD on TRAIN.DATASETS from `--weights`/TRAIN.WEIGHTS (or the seeded
+    init), resuming from OUTPUT_DIR/checkpoints when TRAIN.AUTO_RESUME;
+    checkpoints every TRAIN.CHECKPOINT_PERIOD steps and at MAX_ITER, the
+    smoothed losses in OUTPUT_DIR/training_stats.jsonl, the final weights
+    in OUTPUT_DIR/model_final.npz (flax naming) → its path."""
+    from ..data.pipeline import ClipBatcher, DeviceLoader
+    from ..engine.train import create_train_state, make_train_step
+    from ..utils.checkpoint import (restore_checkpoint, save_checkpoint,
+                                    save_weights_npz, wait_for_checkpoints)
+    from ..utils.logging_utils import setup_logging
+    from ..utils.lr_policy import get_lr_at_iter
+    from ..utils.training_stats import TrainingStats
+
+    logger = setup_logging(
+        level=logging.DEBUG if cfg.DEBUG else logging.INFO)
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    ds = _dataset(cfg, cfg.TRAIN.DATASETS)
+    device = _device(args)
+    model = _init_model(cfg, args.weights or cfg.TRAIN.WEIGHTS or None,
+                        cfg.RNG_SEED, device, train=True)
+    state = create_train_state(cfg, model)
+    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
+    if cfg.TRAIN.AUTO_RESUME:
+        restored, step = restore_checkpoint(ckpt_dir, state)
+        if restored is not None:
+            state = restored
+            logger.info("auto-resumed from step %d", step)
+
+    step_fn = make_train_step(model, cfg)
+    stats = TrainingStats(
+        cfg.SOLVER.MAX_ITER,
+        jsonl_path=os.path.join(cfg.OUTPUT_DIR, "training_stats.jsonl"))
+    batcher = ClipBatcher(ds, cfg, train=True, seed=cfg.RNG_SEED)
+
+    def lr_at(i):
+        return get_lr_at_iter(
+            i, base_lr=cfg.SOLVER.BASE_LR, policy=cfg.SOLVER.LR_POLICY,
+            gamma=cfg.SOLVER.GAMMA, steps=cfg.SOLVER.STEPS,
+            warm_up_iters=cfg.SOLVER.WARM_UP_ITERS,
+            warm_up_factor=cfg.SOLVER.WARM_UP_FACTOR,
+            warm_up_method=cfg.SOLVER.WARM_UP_METHOD)
+
+    def log_metrics(pending_metrics, i):
+        # Reads a PREVIOUS step's metrics: `float` waits for the device,
+        # and the current step is already dispatched, so the read never
+        # leaves the card idle behind the step just queued.
+        vals = {k: float(v) for k, v in pending_metrics.items()}
+        stats.update_iter_stats(vals, i, lr_at(i))
+
+    def batches():
+        """Epoch after epoch through the prefetcher, until closed."""
+        while True:
+            with DeviceLoader(batcher.epoch(cfg.TRAIN.IMS_PER_BATCH), device,
+                              prefetch=cfg.DATA.PREFETCH) as loader:
+                yield from loader
+
+    it = state.step
+    prev = None                          # (device metrics, iter) 1-step lag
+    prev_lr = lr_at(max(it - 1, 0))
+    with contextlib.closing(stats), contextlib.closing(batches()) as stream:
+        for batch in (stream if it < cfg.SOLVER.MAX_ITER else ()):
+            stats.iter_tic()
+            state, metrics = step_fn(state, batch)
+            if prev is not None:
+                log_metrics(*prev)
+            prev = (metrics, it)
+            stats.iter_toc()
+            lr = lr_at(it)
+            ratio = (max(lr, prev_lr) / max(min(lr, prev_lr), 1e-12)
+                     if prev_lr > 0 else 1.0)
+            if lr != prev_lr and ratio >= cfg.SOLVER.LOG_LR_CHANGE_THRESHOLD:
+                logger.info("lr change: %.6f -> %.6f at iter %d", prev_lr,
+                            lr, it)
+            prev_lr = lr
+            it += 1
+            if it % cfg.TRAIN.CHECKPOINT_PERIOD == 0 or (
+                    it >= cfg.SOLVER.MAX_ITER):
+                if prev is not None:         # drain before snapshotting
+                    log_metrics(*prev)
+                    prev = None
+                save_checkpoint(ckpt_dir, state, it)
+            if it >= cfg.SOLVER.MAX_ITER:
+                break
+        if prev is not None:
+            log_metrics(*prev)
+    wait_for_checkpoints(ckpt_dir)
+    final = os.path.join(cfg.OUTPUT_DIR, "model_final.npz")
+    save_weights_npz(final, model)
+    logger.info("saved final weights to %s", final)
+    return final
+
+
 def mode_test(args, cfg):
     from ..engine.inference import run_inference
     from ..utils.io import save_object
@@ -122,6 +222,8 @@ def mode_test(args, cfg):
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     ds = _dataset(cfg, cfg.TEST.DATASETS or cfg.TRAIN.DATASETS)
     out = args.det_out or os.path.join(cfg.OUTPUT_DIR, "detections.pkl")
+    if args.subprocess_shards and args.subprocess_shards > 1:
+        return _test_in_shards(args, cfg, ds, out, logger)
     model = _init_model(cfg, args.weights or cfg.TEST.WEIGHTS or None,
                         cfg.RNG_SEED, _device(args))
     vrange = _video_range(args)
@@ -138,6 +240,40 @@ def mode_test(args, cfg):
     # A --video-range run is one shard: the full set is scored elsewhere.
     if vrange is None:
         _eval_detections(cfg, ds, dets, logger)
+    return out
+
+
+def _test_in_shards(args, cfg, ds, out, logger):
+    """Cross-process fan-out (parity: test_engine.
+    multi_gpu_test_net_on_dataset + utils/subprocess.py): each child runs
+    `--mode test` over one contiguous video range on the parent's
+    `--device`, `--batch-size` and `--weights`; the detections are merged
+    by dict union and scored once. Children re-load the experiment from
+    `--cfg`, so one is required."""
+    from ..utils.io import load_object, save_object
+    from ..utils.subprocess_utils import process_in_parallel
+
+    if not args.cfg:
+        raise SystemExit("--subprocess-shards requires --cfg (children "
+                         "re-parse the experiment YAML)")
+    _device(args)                      # the parent stops where a child would
+    cmd = [sys.executable, "-m", "detectandtrack_tpu_torch.cli.launch",
+           "--mode", "test", "--cfg", args.cfg,
+           "--video-range", "{start}:{end}", "--det-out", "{out}",
+           "--out", cfg.OUTPUT_DIR, "--device", args.device,
+           "--batch-size", str(args.batch_size)]
+    if args.weights:
+        cmd += ["--weights", args.weights]
+    cmd += [str(o) for o in args.opts]
+    shard_paths = process_in_parallel(
+        "detections", len(ds.videos()), cmd, cfg.OUTPUT_DIR,
+        num_workers=args.subprocess_shards)
+    dets = {}
+    for path in shard_paths:
+        dets.update(load_object(path))
+    save_object(dets, out)
+    logger.info("merged %d shards -> %s", len(shard_paths), out)
+    _eval_detections(cfg, ds, dets, logger)
     return out
 
 
@@ -167,14 +303,17 @@ def _gt_by_video(ds, sanitize: bool = False):
     return gt
 
 
-def _finish_tracking(cfg, tracked, logger):
+def _finish_tracking(args, cfg, tracked, logger):
     """Shared tail of track/stream modes: write PoseTrack-format results,
-    evaluate when GT is available → OUTPUT_DIR/track_metrics.json."""
+    the annotated frames with `--vis`, evaluate when GT is available →
+    OUTPUT_DIR/track_metrics.json."""
     from ..tracking.engine import evaluate_tracking, write_posetrack_results
 
     out_dir = os.path.join(cfg.OUTPUT_DIR, "tracks")
     paths = write_posetrack_results(tracked, out_dir)
     logger.info("wrote %d track files to %s", len(paths), out_dir)
+    if args.vis:
+        _write_vis(cfg, tracked, logger)
     try:
         ds = _dataset(cfg, cfg.TEST.DATASETS or cfg.TRAIN.DATASETS)
     except (SystemExit, FileNotFoundError, KeyError):
@@ -201,7 +340,7 @@ def mode_track(args, cfg):
     dets = load_object(args.detections or os.path.join(cfg.OUTPUT_DIR,
                                                        "detections.pkl"))
     tracked = run_posetrack_tracking(dets, cfg=cfg)
-    return _finish_tracking(cfg, tracked, logger)
+    return _finish_tracking(args, cfg, tracked, logger)
 
 
 def mode_eval(args, cfg):
@@ -254,7 +393,40 @@ def mode_stream(args, cfg):
     if args.det_out:                      # optional detections artifact
         save_object(dets, args.det_out)
         logger.info("wrote %s", args.det_out)
-    return _finish_tracking(cfg, tracked, logger)
+    return _finish_tracking(args, cfg, tracked, logger)
+
+
+def _write_vis(cfg, tracked, logger):
+    """Draw tracked detections over the source frames →
+    OUTPUT_DIR/vis/<video>_<frame>.jpg (parity: utils/vis)."""
+    import cv2
+    from ..utils.vis import draw_detections
+    try:
+        ds = _dataset(cfg, cfg.TEST.DATASETS or cfg.TRAIN.DATASETS)
+    except (SystemExit, FileNotFoundError, KeyError):
+        logger.warning("--vis: no dataset available for source frames")
+        return
+    vis_dir = os.path.join(cfg.OUTPUT_DIR, "vis")
+    os.makedirs(vis_dir, exist_ok=True)
+    n_written = 0
+    for vid, frames in tracked.items():
+        recs = ds.video_frames(vid)
+        for fi, fr in enumerate(frames):
+            if fi >= len(recs):
+                break
+            img = cv2.imread(ds.image_path(recs[fi]))
+            if img is None:
+                continue
+            img = draw_detections(
+                img, fr["boxes"], fr["scores"],
+                keypoints=fr.get("keypoints"),
+                track_ids=fr["track_ids"],
+                valid=fr["track_ids"] >= 0)
+            out = os.path.join(vis_dir, f"{vid.replace('/', '_')}_"
+                               f"{fi:06d}.jpg")
+            cv2.imwrite(out, img)
+            n_written += 1
+    logger.info("--vis: wrote %d annotated frames to %s", n_written, vis_dir)
 
 
 def mode_demo_data(args, cfg):
@@ -276,19 +448,48 @@ def mode_demo_data(args, cfg):
     return json_path
 
 
-_MODES = {"test": mode_test, "track": mode_track, "stream": mode_stream,
-          "eval": mode_eval, "demo-data": mode_demo_data}
+def mode_import_weights(args, cfg):
+    """Detectron .pkl → OUTPUT_DIR/imported_weights.npz for --weights
+    (reference weight-loading parity: utils/net.initialize_gpu_from_
+    weights_file with 2D→3D inflation and COCO→PoseTrack head surgery).
+    The model is built on `--device`; what the .pkl leaves unmapped keeps
+    its seeded init."""
+    from ..utils.checkpoint import save_weights_npz
+    from ..utils.detectron_import import import_detectron_weights
+    from ..utils.logging_utils import setup_logging
+
+    logger = setup_logging()
+    if not args.weights:
+        raise SystemExit("--weights <detectron.pkl> required")
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    model = _init_model(cfg, None, cfg.RNG_SEED, _device(args))
+    imported, report = import_detectron_weights(args.weights, model, cfg)
+    model.load_state_dict(imported)
+    out = os.path.join(cfg.OUTPUT_DIR, "imported_weights.npz")
+    save_weights_npz(out, model)
+    logger.info("mapped %d params (%d surgeries); %d unmatched; "
+                "%d source blobs unused", len(report["mapped"]),
+                len(report["surgery"]), len(report["missing"]),
+                len(report["unused"]))
+    for line in report["surgery"]:
+        logger.info("surgery: %s", line)
+    for line in report["missing"]:
+        logger.warning("fresh init kept: %s", line)
+    logger.info("wrote %s — pass it via --weights", out)
+    return out
+
+
+_MODES = {"train": mode_train, "test": mode_test, "track": mode_track,
+          "stream": mode_stream, "eval": mode_eval,
+          "demo-data": mode_demo_data,
+          "import-weights": mode_import_weights}
 
 
 def main(argv=None):
     args = parse_args(argv)
-    asked = [args.mode] + (["--subprocess-shards"]
-                           if args.subprocess_shards else []) + (
-        ["--vis"] if args.vis else [])
-    for what in asked:
-        if what in _NOT_PORTED:
-            raise SystemExit(f"{what} is not ported to detectandtrack_tpu_torch"
-                             f" yet: ROADMAP.md §1 {_NOT_PORTED[what]}")
+    if args.mode in _NOT_PORTED:
+        raise SystemExit(f"--mode {args.mode} is not ported to "
+                         f"detectandtrack_tpu_torch: {_NOT_PORTED[args.mode]}")
     return _MODES[args.mode](args, _load_cfg(args))
 
 

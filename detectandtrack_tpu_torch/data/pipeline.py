@@ -1,6 +1,6 @@
-"""Host input pipeline: clip loading → fixed-shape padded batches (port of
-detectandtrack_tpu/data/pipeline.py without `DeviceLoader`, which feeds
-only the training CLI).
+"""Host input pipeline: clip loading → fixed-shape padded batches, and
+their prefetch onto the model's device (port of
+detectandtrack_tpu/data/pipeline.py; `DeviceLoader` is a torch prefetcher).
 
 Reference parity: `lib/roi_data/minibatch.py` (cv2 read, scale to
 SCALES/MAX_SIZE, mean-subtract) and `lib/utils/blob.py`:
@@ -13,10 +13,13 @@ SCALES/MAX_SIZE, mean-subtract) and `lib/utils/blob.py`:
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .posetrack import FrameRecord, PosetrackDataset
 
@@ -339,3 +342,98 @@ class ClipBatcher:
                 yield {k: np.stack([it[k] for it in items])
                        for k in items[0]}
 
+
+
+class DeviceLoader:
+    """Threaded prefetch of host batches onto `device` (the BlobsQueue
+    replacement): a worker thread pulls `{name: ndarray}` batches from
+    `host_iter` and keeps up to `prefetch` of them on the device ahead of
+    the consumer.
+
+    On CUDA each array is pinned and copied with `non_blocking=True` on a
+    side stream; `__next__` makes the consumer's current stream wait on
+    that copy's event and records the batch's tensors on that stream, so
+    the caching allocator cannot hand their blocks out again while the
+    step still reads them. On the CPU the arrays become tensors as they
+    are (no pinning, no stream).
+
+    An error in the worker is re-raised in the consumer as
+    `RuntimeError("DeviceLoader worker failed")` from its cause: it is
+    never taken for the end of the epoch. `close()` (or leaving a `with`
+    block) stops the worker when the consumer stops early.
+    """
+
+    def __init__(self, host_iter: Iterator, device, prefetch: int = 2):
+        self.host_iter = host_iter
+        self.device = torch.device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        self._done = object()
+        self._error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _to_device(self, batch: Dict[str, np.ndarray]):
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
+        if self._stream is None:
+            return host, None
+        with torch.cuda.stream(self._stream):
+            out = {k: v.pin_memory().to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self):
+        try:
+            for batch in self.host_iter:
+                if not self._put(self._to_device(batch)):
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised on the consumer
+            # A loader error must surface in the training thread: swallowed
+            # here it would look exactly like a clean end of epoch.
+            self._error = e
+        finally:
+            self._put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        item = self._q.get()
+        if item is self._done:
+            if self._error is not None:
+                raise RuntimeError(
+                    "DeviceLoader worker failed") from self._error
+            raise StopIteration
+        batch, event = item
+        if event is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(event)
+            for v in batch.values():
+                v.record_stream(consumer)
+        return batch
+
+    def close(self) -> None:
+        """Stop the worker (it may be blocked on a full queue) and wait
+        for it."""
+        self._stop.set()
+        self._thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

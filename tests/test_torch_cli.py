@@ -7,7 +7,8 @@ same `detection_metrics.json` and the same `track_metrics.json` (MOTP to
 did. The weights are seeded random flax params of the tiny R-18 T=2 f32
 model, saved with the JAX package's `save_weights_npz` and passed to both
 CLIs through `--weights`. Also: the `.npz` round trip between the
-packages, and the modes and flags the port does not have yet.
+packages, `--subprocess-shards` and `--vis`, and the mode the port does
+not have (`bench`).
 
 The JAX CLI runs once per file (module fixture). Its `_init_model` runs
 flax's eager `model.init` only to replace every leaf by the `.npz`, which
@@ -205,16 +206,60 @@ def test_weights_npz_round_trip(run, tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--mode", "train"], "item 3"),
-    (["--mode", "import-weights"], "item 2"),
-    (["--mode", "bench"], "item 1"),
-    (["--mode", "test", "--subprocess-shards", "2"], "subprocess_utils"),
-    (["--mode", "track", "--vis"], "utils/vis.py"),
+    (["--mode", "bench"], "benchmark"),
 ])
 def test_modes_not_ported_yet_name_their_roadmap_item(argv, needle):
     with pytest.raises(SystemExit, match="ROADMAP.md") as err:
         tlaunch.main(argv)
     assert needle in str(err.value)
+
+
+def test_cli_subprocess_shards_equal_one_process(run, port_out, tmp_path,
+                                                 monkeypatch):
+    """`--mode test --subprocess-shards 2`: two child processes, one video
+    range each, on the parent's `--device cpu`, `--batch-size` and
+    `--weights`; the merged detections and their metrics equal the
+    one-process run's."""
+    monkeypatch.setenv("PYTHONPATH", os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    out = tmp_path / "shards"
+    tlaunch.main(["--mode", "test", "--device", "cpu", "--batch-size", "3",
+                  "--subprocess-shards", "2", "--weights", run["weights"],
+                  "--out", str(out)] + run["opts"])
+    assert sorted(n for n in os.listdir(out) if n.endswith(".pkl")) == [
+        "detections.pkl", "detections_range_0_2.pkl",
+        "detections_range_2_3.pkl"]
+    want = load_object(str(port_out / "detections.pkl"))
+    got = load_object(str(out / "detections.pkl"))
+    assert list(got) == list(want)
+    for vid in want:
+        assert len(got[vid]) == len(want[vid])
+        for g, w in zip(got[vid], want[vid]):
+            assert set(g) == set(w)
+            np.testing.assert_array_equal(g["valid"], w["valid"])
+            for key, tol in (("scores", 1e-4), ("boxes", 1e-2),
+                             ("keypoints", 1e-2)):
+                np.testing.assert_allclose(g[key], w[key], atol=tol,
+                                           err_msg=key)
+    assert _json(out / "detection_metrics.json") == _json(
+        port_out / "detection_metrics.json")
+
+
+def test_cli_vis_writes_the_frames_jax_writes(run, tmp_path):
+    """`--mode track --vis` on the JAX CLI's detections: the port writes
+    the annotated frames the JAX CLI's `_write_vis` writes, byte for
+    byte."""
+    dets = str(run["jax"] / "detections.pkl")
+    for main, name in ((jlaunch.main, "jax"), (tlaunch.main, "port")):
+        main(["--mode", "track", "--vis", "--detections", dets,
+              "--out", str(tmp_path / name)] + run["opts"])
+    names = sorted(os.listdir(tmp_path / "jax" / "vis"))
+    assert names == sorted(os.listdir(tmp_path / "port" / "vis"))
+    assert len(names) == 13 and names[0] == "short_0000_000000.jpg"
+    for name in names:
+        with open(tmp_path / "jax" / "vis" / name, "rb") as a, \
+                open(tmp_path / "port" / "vis" / name, "rb") as b:
+            assert a.read() == b.read(), name
 
 
 def test_device_cuda_without_a_card_stops(run, tmp_path):

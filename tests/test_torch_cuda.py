@@ -442,3 +442,81 @@ def test_diag_pool_kernel_matches_plain(cuda, variant, p):
     else:
         assert (got.float() - ref.float()).abs().max().item() <= _tol(
             ref, torch.bfloat16)
+
+
+def test_prefetcher_hands_batches_to_the_consumer_stream(cuda):
+    """The DeviceLoader copies on its side stream; each batch handed over
+    is complete on the consumer's stream (it waits on the copy's event)
+    and stays intact while the allocator is pressed to reuse freed
+    blocks (the batch is recorded on the consumer's stream)."""
+    from detectandtrack_tpu_torch.data.pipeline import DeviceLoader
+    rng = np.random.default_rng(0)
+    host = [{"clips": rng.normal(size=(1, 8, 96, 160, 3)).astype(np.float32),
+             "gt_valid": rng.random((1, 16)) > 0.5} for _ in range(8)]
+    with DeviceLoader(iter(host), cuda, prefetch=2) as loader:
+        assert loader._stream != torch.cuda.current_stream(cuda)
+        for want, batch in zip(host, loader):
+            assert batch["clips"].is_cuda and batch["gt_valid"].is_cuda
+            churn = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+            churn.fill_(255)
+            total = batch["clips"].double().sum()
+            del churn
+            np.testing.assert_allclose(total.item(),
+                                       want["clips"].astype(np.float64).sum(),
+                                       rtol=1e-9)
+            np.testing.assert_array_equal(batch["gt_valid"].cpu().numpy(),
+                                          want["gt_valid"])
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(cuda, tmp_path):
+    """A TrainState on the card is saved from an owned host snapshot (an
+    update right after does not reach the file) and restored onto the
+    card, bit for bit."""
+    from detectandtrack_tpu_torch.engine.train import TrainState
+    from detectandtrack_tpu_torch.utils import checkpoint as ckpt
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {k: torch.nn.Parameter(torch.randn(s, device=cuda,
+                                                generator=gen))
+              for k, s in (("a.weight", (64, 32, 3, 3, 3)), ("a.bias", (64,)))}
+    state = TrainState(params, {"a.weight": torch.randn(
+        (64, 32, 3, 3, 3), device=cuda, generator=gen)}, 7)
+    want = {k: p.detach().clone() for k, p in params.items()}
+    ckpt.save_checkpoint(str(tmp_path), state, 7)
+    with torch.no_grad():
+        for p in params.values():
+            p.mul_(2.0)
+    ckpt.wait_for_checkpoints(str(tmp_path))
+    fresh = TrainState({k: torch.nn.Parameter(torch.zeros_like(p))
+                        for k, p in params.items()}, {}, 0)
+    restored, step = ckpt.restore_checkpoint(str(tmp_path), fresh)
+    assert step == 7 == restored.step
+    for k in want:
+        assert restored.params[k].is_cuda
+        torch.testing.assert_close(restored.params[k].detach(), want[k],
+                                   rtol=0, atol=0)
+    assert restored.momentum["a.weight"].is_cuda
+    torch.testing.assert_close(restored.momentum["a.weight"],
+                               state.momentum["a.weight"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["mean", "center"])
+def test_inflated_conv1_equals_2d_conv1_through_k2(cuda, mode):
+    """conv1's 2D kernel inflated to t=3 (models/inflate.py) through the
+    tensor-core K2 on a time-constant clip: frames 1-6 of the 8 equal the
+    2D kernel's output through K2, within the bf16 tolerance."""
+    from detectandtrack_tpu_torch.models.inflate import inflate_params
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    k2d = torch.randn((1, 7, 7, 3, 64), device=cuda, generator=gen) * 0.05
+    key = "backbone.conv1.conv.weight"
+    k3d = inflate_params({key: k2d}, {key: torch.empty(
+        (3, 7, 7, 3, 64), device=cuda)}, mode=mode)[key]
+    frame = torch.randn((1, 1, 96, 160, 3), device=cuda, generator=gen)
+    before = conv1.launches_tc
+    y3 = conv1(frame.expand(1, 8, 96, 160, 3).contiguous(), k3d, 3,
+               torch.bfloat16)
+    y1 = conv1(frame, k2d, 1, torch.bfloat16)
+    assert conv1.launches_tc == before + 2
+    torch.cuda.synchronize()
+    ref = y1.expand(1, 6, *y1.shape[2:]).float()
+    assert (y3[:, 1:7].float() - ref).abs().max().item() <= _tol(
+        ref, torch.bfloat16)

@@ -2,7 +2,8 @@
 modules against the originals, on the same inputs (numpy-seeded): the
 synthetic set generator (JSON and JPEG bytes), the PoseTrack dataset, clip
 loading and batching, masks, TTA merge helpers, host NMS, OKS, the
-evaluators, the tracking engine's writers and readers, and the small
+evaluators, the tracking engine's writers and readers, the training
+statistics, the subprocess fan-out, the visualizer and the small
 utilities. All are exact."""
 
 import dataclasses
@@ -10,6 +11,8 @@ import filecmp
 import json
 import logging
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -27,7 +30,10 @@ from detectandtrack_tpu.tracking import engine as jeng
 from detectandtrack_tpu.tracking import evaluation as jeval
 from detectandtrack_tpu.utils import io as jio
 from detectandtrack_tpu.utils import logging_utils as jlog
+from detectandtrack_tpu.utils import subprocess_utils as jsub
 from detectandtrack_tpu.utils import timer as jtimer
+from detectandtrack_tpu.utils import training_stats as jstats
+from detectandtrack_tpu.utils import vis as jvis
 from detectandtrack_tpu_torch.core.config import load_cfg
 from detectandtrack_tpu_torch.data import pipeline as tpipe
 from detectandtrack_tpu_torch.data import posetrack as tpt
@@ -41,7 +47,10 @@ from detectandtrack_tpu_torch.tracking import engine as teng
 from detectandtrack_tpu_torch.tracking import evaluation as teval
 from detectandtrack_tpu_torch.utils import io as tio
 from detectandtrack_tpu_torch.utils import logging_utils as tlog
+from detectandtrack_tpu_torch.utils import subprocess_utils as tsub
 from detectandtrack_tpu_torch.utils import timer as ttimer
+from detectandtrack_tpu_torch.utils import training_stats as tstats
+from detectandtrack_tpu_torch.utils import vis as tvis
 
 
 def _assert_same(got, want, path="out"):
@@ -477,3 +486,89 @@ def test_small_utilities(tmp_path):
         assert root.level == logging.WARNING
     finally:
         root.setLevel(level)
+
+
+def test_training_stats(tmp_path, monkeypatch):
+    """The same iterations, losses and clock through both `TrainingStats`:
+    the same `get_stats`, the same `json_stats:` log lines and the same
+    JSONL file, byte for byte."""
+    rng = np.random.default_rng(0)
+    losses = [{"loss_total": float(v), "loss_kps": float(v / 2)}
+              for v in rng.uniform(0, 10, 45)]
+    clock = np.cumsum(rng.uniform(0.1, 0.3, 200)).tolist()
+    out = {}
+    for name, mod in (("jax", jstats), ("port", tstats)):
+        ticks = iter(clock)
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            perf_counter=lambda: next(ticks)))
+        path = tmp_path / f"{name}.jsonl"
+        stats = mod.TrainingStats(45, log_period=10, window_size=7,
+                                  jsonl_path=str(path))
+        lines = []
+        monkeypatch.setattr(mod.logger, "info",
+                            lambda fmt, line: lines.append(line))
+        for i, vals in enumerate(losses):
+            stats.iter_tic()
+            stats.iter_toc()
+            stats.update_iter_stats(vals, i, lr=0.01 * (i + 1))
+        out[name] = (stats.get_stats(), lines)
+        stats.close()
+        sv = mod.SmoothedValue(4)
+        for v in (3.0, 1.0, 2.0, 5.0, 4.0):
+            sv.update(v)
+        out[name] += ((sv.median, sv.average, list(sv.window)),)
+    _assert_same(out["port"], out["jax"])
+    assert len(out["jax"][1]) == 5
+    assert filecmp.cmp(tmp_path / "jax.jsonl", tmp_path / "port.jsonl",
+                       shallow=False)
+
+
+_SHARD = "import pickle, sys; pickle.dump(list(range(int(sys.argv[1]), " \
+    "int(sys.argv[2]))), open(sys.argv[3], 'wb'))"
+
+
+def test_subprocess_utils(tmp_path):
+    """Ranges, the fan-out's shard files and their merge, and a failing
+    shard, through both copies."""
+    for total in (0, 1, 5, 13):
+        for n in (1, 2, 3, 7):
+            _assert_same(tsub.split_ranges(total, n),
+                         jsub.split_ranges(total, n))
+    cmd = [sys.executable, "-c", _SHARD, "{start}", "{end}", "{out}"]
+    paths = {}
+    for name, mod in (("jax", jsub), ("port", tsub)):
+        paths[name] = mod.process_in_parallel(
+            "part", 10, cmd, str(tmp_path / name), num_workers=3)
+        assert [os.path.basename(p) for p in paths[name]] == [
+            "part_range_0_4.pkl", "part_range_4_7.pkl", "part_range_7_10.pkl"]
+        with pytest.raises(RuntimeError, match="1 shard"):
+            mod.process_in_parallel("bad", 2, [sys.executable, "-c",
+                                               "import sys; sys.exit({start})"],
+                                    str(tmp_path / name), num_workers=2)
+    _assert_same(tsub.merge_shard_results(paths["jax"]),
+                 jsub.merge_shard_results(paths["port"]))
+    assert tsub.merge_shard_results(paths["port"]) == list(range(10))
+
+
+def test_vis_draw_detections():
+    """Boxes, scores, skeletons and track ids drawn by both copies onto
+    the same frame give the same pixels; invalid rows are not drawn."""
+    assert tvis._EDGE_IDX == jvis._EDGE_IDX
+    rng = np.random.default_rng(0)
+    image = rng.integers(0, 255, (72, 104, 3), dtype=np.uint8)
+    boxes = np.array([[5, 6, 40, 60], [30, 10, 90, 70], [1, 1, 3, 3]],
+                     np.float32)
+    kps = np.concatenate([rng.uniform(0, 100, (3, 15, 2)),
+                          rng.uniform(-0.5, 1, (3, 15, 1))], -1)
+    args = dict(scores=np.array([0.9, 0.4, 0.2], np.float32), keypoints=kps,
+                track_ids=np.array([3, -1, 7]),
+                valid=np.array([True, True, False]))
+    got = tvis.draw_detections(image, boxes, **args)
+    want = jvis.draw_detections(image, boxes, **args)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, image)
+    np.testing.assert_array_equal(
+        tvis.draw_detections(image, boxes[:2], kp_thresh=0.3,
+                             keypoints=kps[:2, :, :2]),
+        jvis.draw_detections(image, boxes[:2], kp_thresh=0.3,
+                             keypoints=kps[:2, :, :2]))

@@ -1,8 +1,9 @@
 """The port stands alone where JAX is not installed (the GPU machine):
 every module of detectandtrack_tpu_torch imports, the slice runs detect →
-track, one training step of the small model runs, and the CLI's
-demo-data, test and track modes run a generated set, on the CPU, in a
-process where `import jax`, `import flax`, `import detectandtrack_tpu` (the
+track, one training step of the small model runs, the CLI's demo-data,
+test and track modes run a generated set, and its import-weights and
+train modes import a Detectron `.pkl` and take 2 steps from it, on the
+CPU, in a process where `import jax`, `import flax`, `import detectandtrack_tpu` (the
 JAX package) and `import bench` all fail. No source file of the port and
 no line of chip_smoke.py imports the JAX package or `bench`."""
 
@@ -167,6 +168,51 @@ assert len(os.listdir(os.path.join(out, "run", "tracks"))) == 2
 """
 
 
+_FINETUNE = _BLOCK_JAX + """
+import json, os, sys
+import numpy as np
+from detectandtrack_tpu_torch.cli.launch import main
+from detectandtrack_tpu_torch.core.config import load_cfg
+from detectandtrack_tpu_torch.data.synthetic import (
+    generate_synthetic_posetrack)
+from detectandtrack_tpu_torch.models.detector import build_model
+from detectandtrack_tpu_torch.utils.detectron_import import save_detectron_pkl
+out = sys.argv[1]
+generate_synthetic_posetrack(os.path.join(out, "data", "synthetic_hard"),
+                             num_videos=2, frames_per_video=4,
+                             image_hw=(64, 96), seed=3, hard=True)
+small = ["MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
+         "RESNETS.WIDTH_PER_GROUP", "8", "FPN.DIM", "32",
+         "FAST_RCNN.MLP_HEAD_DIM", "64", "KRCNN.NUM_STACKED_CONVS", "1",
+         "KRCNN.CONV_HEAD_DIM", "16", "TEST.SHAPE_BUCKETS", "[[64, 96]]"]
+video = ["VIDEO.VIDEO_ON", "True", "VIDEO.NUM_FRAMES", "2",
+         "VIDEO.TIME_KERNEL_DIM", "[3, 1, 1, 1, 1]"]
+train = ["RPN.PRE_NMS_TOP_N_TRAIN", "100", "RPN.POST_NMS_TOP_N_TRAIN", "32",
+         "RPN.BATCH_SIZE_PER_IM", "32", "FAST_RCNN.BATCH_SIZE_PER_IM", "32",
+         "TRAIN.SCALES", "[64]", "TRAIN.MAX_SIZE", "96",
+         "TRAIN.IMS_PER_BATCH", "1", "SOLVER.MAX_ITER", "2",
+         "TRAIN.CHECKPOINT_PERIOD", "1", "SOLVER.BASE_LR", "0.001",
+         "DATA.ROOT", os.path.join(out, "data"),
+         "TRAIN.DATASETS", "[posetrack_synthetic_hard_train]"]
+cfg2 = load_cfg(opts=small)
+pkl = os.path.join(out, "r18_2d.pkl")
+save_detectron_pkl(pkl, build_model(cfg2, device="cpu", seed=1), cfg2)
+run = os.path.join(out, "run")
+imported = main(["--mode", "import-weights", "--device", "cpu", "--weights",
+                 pkl, "--out", run] + small + video)
+final = main(["--mode", "train", "--device", "cpu", "--weights", imported,
+              "--out", run] + small + video + train)
+assert sorted(os.listdir(os.path.join(run, "checkpoints"))) == ["1.pt", "2.pt"]
+with open(os.path.join(run, "training_stats.jsonl")) as f:
+    stats = [json.loads(line) for line in f]
+assert len(stats) == 1 and np.isfinite(stats[0]["loss_total"]), stats
+with np.load(final) as a, np.load(imported) as b:
+    assert sorted(a.files) == sorted(b.files)
+    assert any(not np.array_equal(a[k], b[k]) for k in a.files)
+""" + _NOTHING_BLOCKED_LOADED + """print("finetune ok")
+"""
+
+
 def _run(code, cwd, timeout=300):
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
@@ -198,6 +244,19 @@ def test_cli_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "cli ok" in proc.stdout
     assert os.path.exists(tmp_path / "data" / "synthetic_hard" / "val.json")
+
+
+def test_finetune_cli_runs_without_jax(tmp_path):
+    """`--mode import-weights` of a 2D Detectron `.pkl` into a 3D model,
+    then 2 steps of `--mode train` from the imported `.npz` (checkpoints,
+    training stats, final weights), with jax/flax/the JAX package/bench
+    blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _FINETUNE, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "finetune ok" in proc.stdout
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
@@ -235,7 +294,8 @@ _PORT_SOURCES = sorted(
 
 def test_walk_packages_reaches_the_tools_and_utils():
     """The no-JAX import run above walks the package with pkgutil: it
-    reaches the diagnostic kernel, the profiling utilities and every tool."""
+    reaches the diagnostic kernel, the profiling utilities, every tool and
+    the fine-tuning modules."""
     import pkgutil
 
     import detectandtrack_tpu_torch as pkg
@@ -245,7 +305,8 @@ def test_walk_packages_reaches_the_tools_and_utils():
         "kernels.diag_roialign", "utils.env", "utils.profiling",
         "utils.roofline", "tools.diag_roialign", "tools.bench_roialign",
         "tools.bench_conv", "tools.capture_trace", "tools.trace_summary",
-        "tools.conv_roofline")}
+        "tools.conv_roofline", "models.inflate", "utils.detectron_import",
+        "utils.training_stats", "utils.subprocess_utils", "utils.vis")}
     assert want <= mods, want - mods
 
 

@@ -270,3 +270,33 @@ def test_capture_trace_gives_torch_ops_work_to_their_longest_kernel():
     assert w.n_bytes == 2 * (2 * 8 * 16 * 16 + 4 * 8 * 9 + 2 * 4 * 16 * 16)
     assert work["Kernel2"].flops == 65536
     assert work["Kernel2"].n_bytes == 2 * (16 + 32 * 64 + 64 * 16 + 32 * 16)
+
+
+def test_smoke_learn_tool_on_cpu(tmp_path, capsys):
+    """The learning recipe's runner: 2 training steps, test and track
+    through the port's CLI on the CPU, on a small set made beforehand (the
+    tool makes the demo-data set only where none is) → one JSON line with
+    finite metrics."""
+    import math
+
+    from detectandtrack_tpu_torch.data.synthetic import (
+        generate_synthetic_posetrack)
+    from detectandtrack_tpu_torch.tools import smoke_learn
+    generate_synthetic_posetrack(str(tmp_path / "data" / "synthetic"),
+                                 num_videos=1, frames_per_video=4,
+                                 image_hw=(64, 96), seed=2)
+    small = ["MODEL.CONV_BODY", "resnet18", "RESNETS.WIDTH_PER_GROUP", "8",
+             "FPN.DIM", "32", "FAST_RCNN.MLP_HEAD_DIM", "64",
+             "KRCNN.NUM_STACKED_CONVS", "1", "KRCNN.CONV_HEAD_DIM", "16",
+             "TRAIN.SCALES", "[64]", "TRAIN.MAX_SIZE", "96",
+             "TEST.SCALE", "64", "TEST.MAX_SIZE", "96",
+             "TEST.SHAPE_BUCKETS", "[[64, 96]]"]
+    rows = smoke_learn.main(["--steps", "2", "--device", "cpu", "--out",
+                             str(tmp_path)] + small)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == rows[0]
+    assert (line["seed"], line["steps"], line["device"]) == (3, 2, "cpu")
+    assert all(math.isfinite(line[k]) for k in ("mAP", "MOTA", "box_AP50",
+                                                 "train_s"))
+    assert sorted(os.listdir(tmp_path / "seed3_2" / "checkpoints")) == [
+        "2.pt"]

@@ -40,9 +40,13 @@ def make_batch(seed=0, t=T, mask_size=0):
                        [3, 2], (H, W), mask_size)
 
 
-def jax_draws(seed, step):
-    """The uniforms JAX's train step draws at `step`, as port Draws."""
+def jax_draws(seed, step, shard=None):
+    """The uniforms JAX's train step draws at `step`, as port Draws; with
+    `shard`, those of that shard of its `shard_map` step (the JAX CLI's),
+    whose key folds the shard index in after the step."""
     rng = jax.random.fold_in(jax.random.PRNGKey(seed), step)
+    if shard is not None:
+        rng = jax.random.fold_in(rng, shard)
     _, k_anchor, k_prop = jax.random.split(rng, 3)
 
     def draw(stage, b, n):
