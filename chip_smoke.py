@@ -75,6 +75,17 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      scores on the same recipe. Checked: launch counters = steps x the
      per-step counts of 8, checkpoints, finite losses every step;
      printed: host and CUDA-event step times, their ratio, peak memory;
+  8d. [multigpu] data parallelism (parallel/mesh.py), each multi-rank run
+     a torchrun child (this script with --child) under a timeout; the one
+     card allows two ranks over gloo and NCCL at world size 1: (a) two
+     ranks, one step of the golden f32 model (all-reduced gradients vs
+     the mean of the rows' gradients on the card, parameters equal across
+     ranks), then 1 warm-up and 2 steps of the main config at full width,
+     one clip per rank (launches = steps x the per-step counts of 8, step
+     time, peak memory, the gloo all-reduce of one step's gradients);
+     (b) --mode train under torchrun at world size 1 (NCCL) vs the same
+     run alone; (c) --mode test and --mode stream on two ranks vs one
+     process at --batch-size 1 (launches per rank, detections, track ids);
   9. [surface] the rest of the model surface: the kernels against their
      plain versions at the shapes its paths give them, read from the
      configs (conv1 at t=1 on 800x1344; K1 on C4's one 1024-wide
@@ -92,7 +103,8 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      each of the golden model and of the mask, C4, center-frame and
      RPN-only branches (losses and every gradient).
 Then it prints the kernels' JSON line (launches summed over the
-full-width paths, the [dataset] and [finetune] CLI runs among them; conv1's f32 kernel
+full-width paths, the [dataset], [finetune] and [multigpu] runs among
+them, the torchrun children's counts included; conv1's f32 kernel
 counted over the parity phases, K3 on its own path, the RoIAlign
 backward's prep kernel beside its gather, the diagnostic kernel per
 variant at p=7 with its tool's launches; each with its time, its plain
@@ -1617,8 +1629,8 @@ class _StepTimer:
         self.mod, self.saved = ttrain, ttrain.make_train_step
         torch, inst = self.torch, self
 
-        def make_train_step(model, cfg):
-            fn = inst.saved(model, cfg)
+        def make_train_step(model, cfg, mesh=None):
+            fn = inst.saved(model, cfg, mesh)
 
             def step(state, batch, draws=None):
                 start = torch.cuda.Event(enable_timing=True)
@@ -1938,6 +1950,470 @@ def phase_finetune(torch, per_step):
     return total
 
 
+MULTIGPU_DIR = os.path.join(DATASET_DIR, "multigpu")
+MULTIGPU_TIMEOUT = 300      # s for each multi-rank launch, its ranks' start
+MULTIGPU_STEPS = 2          # timed steps of (a), after 1 warm-up
+
+
+def _torchrun(nproc, child_args, log, timeout=MULTIGPU_TIMEOUT):
+    """`python -m torch.distributed.run --standalone --nproc-per-node
+    nproc chip_smoke.py --child ...` in a session of its own, output in
+    `log`; the whole session is killed at the timeout. Raises unless every
+    rank exits 0 → wall s."""
+    import signal
+    import subprocess
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), os.path.join(REPO, "chip_smoke.py"),
+           "--child"] + child_args
+    # Every rank runs on this host: gloo and NCCL connect over loopback.
+    env = dict({"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"},
+               **os.environ, PYTHONPATH=REPO)
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "DAT_DISTRIBUTED"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise RuntimeError(f"[multigpu] {child_args[0]} ranks still "
+                               f"running after {timeout} s (killed); {log}")
+    if proc.returncode != 0:
+        with open(log) as f:
+            tail = f.read()[-6000:]
+        raise RuntimeError(f"[multigpu] {child_args[0]}: a rank failed "
+                           f"(torchrun exit {proc.returncode}):\n{tail}")
+    return time.perf_counter() - t0
+
+
+def _rank_results(out_dir, nproc):
+    return [_json_load(os.path.join(out_dir, f"rank{r}.json"))
+            for r in range(nproc)]
+
+
+def _digest(params) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(params):
+        h.update(params[key].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _child_train(torch, out_dir):
+    """(a) on two ranks of one card (gloo): one f32 step of the golden model
+    (its all-reduced gradients saved for the parent), then the main config
+    at full width, 1 clip per rank: 1 warm-up and MULTIGPU_STEPS timed
+    steps, the launch counters, the peak memory, the gloo all-reduce of
+    one step's gradients timed alone, a digest of the parameters."""
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.train import (create_train_state,
+                                                        make_train_step)
+    from detectandtrack_tpu_torch.models.detector import build_model
+    from detectandtrack_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.maybe_init_distributed("cuda")
+    mesh = pmesh.make_mesh("cuda")
+    res = {"rank": mesh.rank, "backend": mesh.backend}
+
+    def setup(cfg, b, h, w, n_valid, seed):
+        """Model, state and step of `cfg`, this rank's rows of a seeded
+        global batch of `b` clips."""
+        model = build_model(cfg, device="cuda", seed=0, train=True)
+        state = pmesh.replicate(mesh, create_train_state(cfg, model))
+        batch = _train_batch(torch, cfg, b, h, w, cfg.TRAIN.MAX_GT_PER_IM,
+                             n_valid, seed)
+        batch = pmesh.shard_batch(mesh, {k: v.cuda() for k, v in
+                                         batch.items()})
+        return state, make_train_step(model, cfg, mesh), batch
+
+    cfg = load_cfg(opts=TRAIN_OPTS)
+    state, step, batch = setup(cfg, 2, 64, 96, 3, 8)
+    _reset_counters()
+    state, _ = step(state, batch)
+    res["golden_launches"] = _read_counters()
+    torch.save({k: p.grad.cpu() for k, p in state.params.items()
+                if p.grad is not None},
+               os.path.join(out_dir, f"golden_grads{mesh.rank}.pt"))
+    res["golden_digest"] = _digest(state.params)
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    # The main config: TRAIN.IMS_PER_BATCH (1) clips per rank.
+    cfg = load_cfg(os.path.join(REPO, BOX_CFG),
+                   opts=["SOLVER.BASE_LR", TRAIN_SMOKE_LR])
+    h, w = cfg.TEST.SHAPE_BUCKETS[0]
+    state, step, batch = setup(cfg, cfg.TRAIN.IMS_PER_BATCH * mesh.size, h,
+                               w, 5, 7)
+    state, _ = step(state, batch)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    secs, losses = [], []
+    for _ in range(MULTIGPU_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    res.update(launches=_read_counters(), step_s=secs, losses=losses,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               digest=_digest(state.params))
+    grads = [p.grad for p in state.params.values() if p.grad is not None]
+    res["allreduce_mb"] = sum(g.numel() * g.element_size()
+                              for g in grads) / 2 ** 20
+    res["allreduce_ms"] = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        pmesh.barrier(mesh)
+        t0 = time.perf_counter()
+        pmesh.pmean(mesh, grads)
+        torch.cuda.synchronize()
+        res["allreduce_ms"].append(1e3 * (time.perf_counter() - t0))
+    torch.distributed.destroy_process_group()
+    return res
+
+
+def _child_cli(torch, runs):
+    """The port's CLI on this rank, once per argv list of `runs`, each with
+    the launch counters reset before and read after, and its
+    `run_inference` and `load_clip` host times. One run lets the CLI start
+    and end its process group itself; several share one group, started
+    here by the same `maybe_init_distributed`."""
+    from detectandtrack_tpu_torch.cli.launch import main as cli
+    from detectandtrack_tpu_torch.parallel import mesh as pmesh
+
+    if len(runs) > 1:
+        pmesh.maybe_init_distributed("cuda")
+    res = {"rank": int(os.environ["RANK"]), "runs": []}
+    with _LogLines() as lines, _Instrumented(torch) as ins:
+        for argv in runs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            n_walls, n_loads = len(ins.walls), len(ins.loads)
+            t0 = time.perf_counter()
+            cli(argv)
+            torch.cuda.synchronize()
+            res["runs"].append({
+                "launches": _read_counters(),
+                "wall_s": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "run_inference_s": sum(ins.walls[n_walls:]),
+                "load_clip_s": sum(ins.loads[n_loads:]),
+                "clips_decoded": len(ins.loads) - n_loads})
+    res["mesh_lines"] = [m for m in lines if "backend" in m]
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return res
+
+
+def _child(argv) -> int:
+    """A rank of a [multigpu] launch (torchrun's environment): `train
+    OUT_DIR` runs `_child_train`, `cli OUT_DIR RUNS_JSON` `_child_cli`;
+    the result goes to OUT_DIR/rank<r>.json."""
+    import torch
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind, out_dir = argv[0], argv[1]
+    res = (_child_train(torch, out_dir) if kind == "train"
+           else _child_cli(torch, json.loads(argv[2])))
+    with open(os.path.join(out_dir, f"rank{res['rank']}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _golden_mean_grads(torch):
+    """The golden model's per-shard gradients on the card, each row with
+    its rank's draws, and their mean: what (a)'s all-reduce must give."""
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.train import (create_train_state,
+                                                        generator_draws,
+                                                        train_forward)
+    from detectandtrack_tpu_torch.models.detector import build_model
+
+    cfg = load_cfg(opts=TRAIN_OPTS)
+    batch = _train_batch(torch, cfg, 2, 64, 96, cfg.TRAIN.MAX_GT_PER_IM, 3,
+                         8)
+    model = build_model(cfg, device="cuda", seed=0, train=True)
+    trained = {k: p for k, p in create_train_state(cfg, model).params.items()
+               if p.requires_grad}
+    per_shard = []
+    for r in range(2):
+        for p in trained.values():
+            p.grad = None
+        row = {k: v[r:r + 1].cuda() for k, v in batch.items()}
+        total, _ = train_forward(
+            model, row["clips"], row["gt_boxes"], row["gt_keypoints"],
+            row["gt_valid"], generator_draws(cfg.RNG_SEED, 0, r))
+        total.backward()
+        per_shard.append({k: (p.grad if p.grad is not None
+                              else torch.zeros_like(p)).cpu()
+                          for k, p in trained.items()})
+    return {k: (per_shard[0][k] + per_shard[1][k]) / 2 for k in trained}
+
+
+def _scale(n, launches):
+    return {k: n * v for k, v in launches.items()}
+
+
+def phase_multigpu(torch, per_step):
+    """Data parallelism (`parallel/mesh.py`), every multi-rank run a
+    torchrun child with a timeout. The one card allows two ranks over gloo
+    (NCCL refuses two ranks on one device) and NCCL at world size 1:
+    (a) two ranks, gloo: one step of the golden f32 model, each rank's
+    all-reduced gradient equal to the mean of the two rows' gradients
+    computed here with the same per-rank draws (GRAD_REL_TOL of each
+    gradient's max), parameters equal across the ranks bit for bit; then
+    the main config at full width, bf16, one 8x800x1344 clip per rank,
+    1 warm-up and 2 timed steps: losses finite, launches = steps x
+    `per_step` on each rank, parameters equal across the ranks; step time,
+    peak memory and the gloo all-reduce of one step's gradients printed;
+    (b) `--mode train` of the main config under torchrun at world size 1
+    (NCCL) for 2 steps on [dataset]'s 720x1280 set: reports nccl, and its
+    final weights equal the same CLI run's without torchrun within the
+    bf16 tolerance; (c) `--mode test` and `--mode stream` under torchrun,
+    two ranks (gloo), 1 clip per rank, on [dataset]'s set and config:
+    launches per rank from the windows and global batches, every frame
+    once, detections equal the one-process `--batch-size 1` run's (the
+    same per-clip shapes on the same card: valid counts per frame equal,
+    boxes and scores within the bf16 tolerance), the stream's track ids
+    equal test + track → the launches summed over every run."""
+    import shutil
+
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.data.posetrack import get_dataset
+    from detectandtrack_tpu_torch.tracking.engine import (
+        read_posetrack_results)
+    from detectandtrack_tpu_torch.utils.checkpoint import load_weights_npz
+    from detectandtrack_tpu_torch.utils.env import card_line
+    from detectandtrack_tpu_torch.utils.io import load_object
+    from detectandtrack_tpu_torch.models.detector import build_model
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    shutil.rmtree(MULTIGPU_DIR, ignore_errors=True)
+    os.makedirs(MULTIGPU_DIR)
+    torch.cuda.empty_cache()
+    total: dict = {}
+
+    # (a) Two ranks on the card over gloo.
+    out_a = os.path.join(MULTIGPU_DIR, "a")
+    os.makedirs(out_a)
+    wall = _torchrun(2, ["train", out_a], os.path.join(out_a, "log.txt"))
+    ranks = _rank_results(out_a, 2)
+    want = _golden_mean_grads(torch)
+    worst = (0.0, "")
+    for r in range(2):
+        got = torch.load(os.path.join(out_a, f"golden_grads{r}.pt"))
+        if set(got) != set(want):
+            raise RuntimeError(f"[multigpu] (a) rank {r}: gradients of "
+                               f"{sorted(set(got) ^ set(want))[:4]}")
+        for k, g in want.items():
+            rel = ((got[k] - g).abs().max().item()
+                   / max(g.abs().max().item(), GRAD_FLOOR / GRAD_REL_TOL))
+            worst = max(worst, (rel, k))
+    if not worst[0] <= GRAD_REL_TOL:
+        raise RuntimeError(f"[multigpu] (a) golden: all-reduced gradient "
+                           f"{worst[1]} differs from the mean of the rows' "
+                           f"by {worst[0]:.3g} of its max")
+    want_launches = _scale(MULTIGPU_STEPS, per_step)
+    golden_want = {"conv1": 0, "conv1_f32": 1, "roi_align": 2,
+                   "roi_align_backward": 2, "roi_align_backward_prep": 2}
+    for res in ranks:
+        if res["backend"] != "gloo":
+            raise RuntimeError(f"[multigpu] (a) backend {res['backend']}")
+        if res["golden_launches"] != golden_want:
+            raise RuntimeError(f"[multigpu] (a) golden launches "
+                               f"{res['golden_launches']}")
+        if res["launches"] != want_launches:
+            raise RuntimeError(f"[multigpu] (a) rank {res['rank']}: "
+                               f"launches {res['launches']}, expected "
+                               f"{want_launches}")
+        bad = [k for d in res["losses"] for k, v in d.items()
+               if not np.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"[multigpu] (a) losses {res['losses']}")
+        _add(total, res["golden_launches"])
+        _add(total, res["launches"])
+    for key in ("golden_digest", "digest"):
+        if ranks[0][key] != ranks[1][key]:
+            raise RuntimeError(f"[multigpu] (a) parameters differ across "
+                               f"the ranks after the steps ({key})")
+    print(f"[multigpu] (a) 2 ranks on one card, gloo: golden R-18 T=2 f32 "
+          f"step, all-reduced gradients vs the mean of the rows' on the "
+          f"card: worst {worst[1]} at {worst[0]:.3g} of its max (tol "
+          f"{GRAD_REL_TOL}); parameters equal across the ranks", flush=True)
+    for res in ranks:
+        print(f"[multigpu] (a) rank {res['rank']}: {BOX_CFG} bf16, 1 clip "
+              f"8x800x1344 per rank (global batch 2), {MULTIGPU_STEPS} steps "
+              f"after 1 warm-up, step s {[round(s, 4) for s in res['step_s']]}"
+              f" (median {statistics.median(res['step_s']):.4f}); peak "
+              f"memory {res['peak_gib']:.2f} GiB; gloo all-reduce of one "
+              f"step's gradients ({res['allreduce_mb']:.1f} MiB, two ranks "
+              f"on one card, through the host; not an NCCL figure) ms "
+              f"{[round(x, 1) for x in res['allreduce_ms']]}; launches "
+              f"{res['launches']}; losses of the last step "
+              f"{ {k: round(v, 4) for k, v in res['losses'][-1].items()} } "
+              f"({card})", flush=True)
+    print(f"[multigpu] (a) parameters equal across the ranks after the "
+          f"steps; torchrun wall {wall:.1f} s", flush=True)
+
+    # (b) NCCL at world size 1: the CLI's train under torchrun, and alone.
+    data = os.path.join(DATASET_DIR, "data")
+    train_opts = ["SOLVER.BASE_LR", str(TRAIN_SMOKE_LR), "SOLVER.MAX_ITER",
+                  "2", "TRAIN.CHECKPOINT_PERIOD", "2", "DATA.ROOT", data,
+                  "TRAIN.DATASETS", "[posetrack_synthetic_hard_val]"]
+    out_b = os.path.join(MULTIGPU_DIR, "b")
+    os.makedirs(out_b)
+
+    def train_argv(out):
+        return ["--mode", "train", "--cfg", os.path.join(REPO, BOX_CFG),
+                "--device", "cuda", "--out", out] + train_opts
+
+    wall = _torchrun(1, ["cli", out_b, json.dumps(
+        [train_argv(os.path.join(out_b, "torchrun"))])],
+        os.path.join(out_b, "log.txt"))
+    (res,) = _rank_results(out_b, 1)
+    if not any("rank 0 of 1, backend nccl" in m for m in res["mesh_lines"]):
+        raise RuntimeError(f"[multigpu] (b) not on nccl: "
+                           f"{res['mesh_lines']}")
+    want_launches = _scale(2, per_step)
+    if res["runs"][0]["launches"] != want_launches:
+        raise RuntimeError(f"[multigpu] (b) launches {res['runs']}")
+    _add(total, res["runs"][0]["launches"])
+    _, launches, alone_wall, _ = _cli_counted(
+        torch, train_argv(os.path.join(out_b, "alone")), want_launches,
+        "[multigpu] (b)")
+    _add(total, launches)
+    cfg = load_cfg(os.path.join(REPO, BOX_CFG))
+    finals = []
+    for run in ("torchrun", "alone"):
+        model = build_model(cfg, device="meta")
+        model = model.to_empty(device="cpu")
+        load_weights_npz(os.path.join(out_b, run, "model_final.npz"), model)
+        finals.append(dict(model.named_parameters()))
+    start = build_model(cfg, device="cpu", seed=cfg.RNG_SEED)
+    worst, moved = 0.0, 0
+    for k, p in finals[1].items():
+        tol = BF16_REL_TOL * max(1.0, p.abs().max().item())
+        err = (finals[0][k] - p).abs().max().item()
+        worst = max(worst, err / tol)
+        moved += not torch.equal(p, dict(start.named_parameters())[k])
+    if worst > 1.0 or moved < len(finals[1]) // 2:
+        raise RuntimeError(f"[multigpu] (b) final weights: worst "
+                           f"{worst:.3g} of the bf16 tolerance, {moved} "
+                           "parameters moved")
+    del finals, start, model
+    print(f"[multigpu] (b) torchrun --nproc-per-node 1 --mode train, "
+          f"{BOX_CFG} bf16, 2 steps on {DATASET_HW[0]}x{DATASET_HW[1]}: "
+          f"{res['mesh_lines'][0]}; final weights equal the run without "
+          f"torchrun (worst {worst:.3g} of the bf16 tolerance, {moved} "
+          f"parameters moved); walls: torchrun {wall:.1f} s (CLI "
+          f"{res['runs'][0]['wall_s']:.1f} s), alone {alone_wall:.1f} s; "
+          f"launches {res['runs'][0]['launches']} ({card})", flush=True)
+    shutil.rmtree(out_b, ignore_errors=True)
+
+    # (c) Sharded test and stream, two ranks over gloo, 1 clip per rank.
+    ds = get_dataset("posetrack_synthetic_hard_val", data)
+    opts = DATASET_OPTS + ["DATA.ROOT", data,
+                           "TEST.DATASETS", "[posetrack_synthetic_hard_val]"]
+    dcfg = load_cfg(os.path.join(REPO, DATASET_CFG), opts=opts)
+    t, d = dcfg.VIDEO.NUM_FRAMES, dcfg.TEST.DETECTIONS_PER_IM
+    n_win = sum(_windows(len(ds.video_frames(v)), t) for v in ds.videos())
+    out_c = os.path.join(MULTIGPU_DIR, "c")
+    os.makedirs(out_c)
+
+    def infer_argv(mode, out, batch):
+        return ["--mode", mode, "--cfg", os.path.join(REPO, DATASET_CFG),
+                "--device", "cuda", "--out", out, "--batch-size",
+                str(batch)] + opts
+
+    wall = _torchrun(2, ["cli", out_c, json.dumps([
+        infer_argv("test", os.path.join(out_c, "test"), 2),
+        infer_argv("stream", os.path.join(out_c, "stream"), 2)])],
+        os.path.join(out_c, "log.txt"))
+    ranks = _rank_results(out_c, 2)
+    per_rank = -(-n_win // 2)           # global batches, one clip a rank
+    want_launches = {"conv1": per_rank, "conv1_f32": 0,
+                     "roi_align": 2 * per_rank, "roi_align_backward": 0,
+                     "roi_align_backward_prep": 0}
+    for res in ranks:
+        if not any(f"rank {res['rank']} of 2, backend gloo" in m
+                   for m in res["mesh_lines"]):
+            raise RuntimeError(f"[multigpu] (c) {res['mesh_lines']}")
+        for run in res["runs"]:
+            if run["launches"] != want_launches:
+                raise RuntimeError(f"[multigpu] (c) rank {res['rank']}: "
+                                   f"launches {run['launches']}, expected "
+                                   f"{want_launches} ({n_win} windows)")
+            _add(total, run["launches"])
+    one = os.path.join(out_c, "one")
+    with _Instrumented(torch) as ins:
+        launches, one_wall, _ = _cli_run(
+            torch, "test B=1", "test", DATASET_CFG, one, opts, 1,
+            {"conv1": n_win, "conv1_f32": 0, "roi_align": 2 * n_win,
+             "roi_align_backward": 0, "roi_align_backward_prep": 0})
+    _add(total, launches)
+    got_path = os.path.join(out_c, "test", "detections.pkl")
+    n_valid = _check_dataset_dets("[multigpu] (c) test", got_path, ds, d)
+    got, want = load_object(got_path), load_object(os.path.join(
+        one, "detections.pkl"))
+    worst = 0.0
+    for vid, frames in want.items():
+        for g, w in zip(got[vid], frames):
+            if int(g["valid"].sum()) != int(w["valid"].sum()):
+                raise RuntimeError(f"[multigpu] (c) {vid}: valid counts "
+                                   "differ from the one-process run's")
+            for key in ("boxes", "scores"):
+                tol = BF16_REL_TOL * max(1.0, float(np.abs(w[key]).max()))
+                worst = max(worst, float(np.abs(g[key] - w[key]).max()) / tol)
+    if worst > 1.0:
+        raise RuntimeError(f"[multigpu] (c) detections differ from the "
+                           f"one-process run's by {worst:.3g} of the bf16 "
+                           "tolerance")
+    _cli_run(torch, "track", "track", DATASET_CFG,
+             os.path.join(out_c, "test"), opts, 1)
+    two = read_posetrack_results(os.path.join(out_c, "test", "tracks"))
+    streamed = read_posetrack_results(os.path.join(out_c, "stream",
+                                                   "tracks"))
+    if set(two) != set(streamed) or any(
+            len(two[v]) != len(streamed[v]) or any(
+                not np.array_equal(a["track_ids"], b["track_ids"])
+                for a, b in zip(two[v], streamed[v])) for v in two):
+        raise RuntimeError("[multigpu] (c) the sharded stream's track ids "
+                           "differ from the sharded test + track")
+    print(f"[multigpu] (c) torchrun --nproc-per-node 2 (gloo), "
+          f"{DATASET_CFG} bf16, global batch 2 (1 clip per rank): test and "
+          f"stream, {n_win} windows = {per_rank} batches per rank, launches "
+          f"per rank and run {want_launches}; every frame once, {n_valid} "
+          f"valid detections, equal to the one-process --batch-size 1 run "
+          f"(worst {worst:.3g} of the bf16 tolerance); stream track ids "
+          f"equal test + track; walls: torchrun {wall:.1f} s (rank 0: test "
+          f"{ranks[0]['runs'][0]['wall_s']:.1f} s, stream "
+          f"{ranks[0]['runs'][1]['wall_s']:.1f} s), one process "
+          f"{one_wall:.1f} s ({card})", flush=True)
+    for res in ranks:
+        print(f"[multigpu] (c) rank {res['rank']}: run_inference s (test, "
+              f"stream; the model's broadcast from rank 0 included) "
+              f"{[round(r['run_inference_s'], 3) for r in res['runs']]}, "
+              f"load_clip {[r['clips_decoded'] for r in res['runs']]} clips "
+              f"in {[round(r['load_clip_s'], 3) for r in res['runs']]} s; "
+              f"peak memory {[round(r['peak_gib'], 2) for r in res['runs']]}"
+              f" GiB; one process, --batch-size 1: run_inference "
+              f"{ins.walls[0]:.3f} s, load_clip {len(ins.loads)} clips in "
+              f"{sum(ins.loads):.3f} s ({card})", flush=True)
+    shutil.rmtree(MULTIGPU_DIR, ignore_errors=True)
+    print(f"[multigpu] phase wall {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total} ({card})", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1987,7 +2463,9 @@ def main() -> int:
         os.path.join(REPO, BOX_CFG), opts=["SOLVER.BASE_LR", TRAIN_SMOKE_LR]),
         3, seed=7)
     dataset = phase_dataset(torch)
-    finetune = phase_finetune(torch, {k: v // 3 for k, v in training.items()})
+    per_step = {k: v // 3 for k, v in training.items()}
+    finetune = phase_finetune(torch, per_step)
+    multigpu = phase_multigpu(torch, per_step)
     phase_surface_kernels(torch)
     surface = phase_surface(torch)
     # The f32 models of the parity phases run conv1's CUDA-core kernel.
@@ -1999,10 +2477,11 @@ def main() -> int:
         raise RuntimeError(f"parity: launch counters {parity}: conv1's f32 "
                            "kernel never ran")
     launches = {k: inference[k] + training[k] + dataset[k] + surface[k]
-                + finetune[k] for k in training}
+                + finetune[k] + multigpu[k] for k in training}
     print(f"[launches] inference slice {inference}; training slice "
           f"{training}; dataset paths {dataset}; fine-tuning path "
-          f"{finetune}; surface paths {surface}; "
+          f"{finetune}; data-parallel runs {multigpu}; surface paths "
+          f"{surface}; "
           f"parity phases {parity}; "
           f"k3 path {results['roi_align_k3']['launches']}; diagnostic "
           f"tool {diag}; sum of the full-width paths {launches}", flush=True)
@@ -2050,4 +2529,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_child(sys.argv[2:]) if sys.argv[1:2] == ["--child"] else main())

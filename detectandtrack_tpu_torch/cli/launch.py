@@ -10,6 +10,16 @@ The model runs on `--device` (default `cuda`; `cpu` must be asked for);
 with `cuda` and no CUDA device the launcher stops rather than run on the
 CPU.
 
+Data parallel, one process per card: under torchrun
+(`python -m torch.distributed.run --nproc-per-node N -m
+detectandtrack_tpu_torch.cli.launch ...`) the process group starts before
+anything touches the card (`parallel.mesh.maybe_init_distributed`; NCCL
+where every rank has a card, gloo on the CPU or on a shared card). Train
+runs the sharded step on a global batch of TRAIN.IMS_PER_BATCH x ranks;
+test and stream shard each global batch (`--batch-size`, by default the
+number of ranks) over the ranks. Rank 0 alone writes: training stats,
+checkpoints and final weights, detections, tracks and metrics.
+
 Usage:
   launch --cfg ... --mode import-weights --weights detectron.pkl
   launch --cfg ... --mode train [--weights imported_weights.npz]
@@ -64,8 +74,9 @@ def parse_args(argv=None):
                    help="START:END video slice for sharded inference")
     p.add_argument("--det-out", default=None,
                    help="detections pickle path override (test mode)")
-    p.add_argument("--batch-size", type=int, default=1,
-                   help="clips per model call in test/stream mode")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="clips per model call in test/stream mode, over "
+                        "all ranks (default 1, or the number of ranks)")
     p.add_argument("--subprocess-shards", type=int, default=0,
                    help="fan dataset inference (test mode) out over N "
                         "child processes, one video range each")
@@ -101,7 +112,19 @@ def _device(args) -> str:
     return args.device
 
 
-def _init_model(cfg, weights: Optional[str], seed: int, device: str,
+def _mesh(args, logger):
+    """This process's data-parallel mesh on `--device`: a world of 1
+    without a process group; under torchrun its rank and backend are
+    logged."""
+    from ..parallel.mesh import make_mesh
+    mesh = make_mesh(_device(args))
+    if mesh.backend is not None:
+        logger.info("rank %d of %d, backend %s, on %s", mesh.rank, mesh.size,
+                    mesh.backend, mesh.device)
+    return mesh
+
+
+def _init_model(cfg, weights: Optional[str], seed: int, device,
                 train: bool = False):
     """The port's model on `device`, seeded, with `weights` loaded."""
     from ..models.detector import build_model
@@ -124,9 +147,15 @@ def mode_train(args, cfg):
     init), resuming from OUTPUT_DIR/checkpoints when TRAIN.AUTO_RESUME;
     checkpoints every TRAIN.CHECKPOINT_PERIOD steps and at MAX_ITER, the
     smoothed losses in OUTPUT_DIR/training_stats.jsonl, the final weights
-    in OUTPUT_DIR/model_final.npz (flax naming) → its path."""
+    in OUTPUT_DIR/model_final.npz (flax naming) → its path.
+
+    Over ranks: every rank restores the same checkpoint, rank 0's state is
+    broadcast, each step takes a global batch of IMS_PER_BATCH x ranks (each
+    rank decoding its rows), and rank 0 alone writes the files, with every
+    rank waiting at each save and at the end."""
     from ..data.pipeline import ClipBatcher, DeviceLoader
     from ..engine.train import create_train_state, make_train_step
+    from ..parallel.mesh import barrier, replicate
     from ..utils.checkpoint import (restore_checkpoint, save_checkpoint,
                                     save_weights_npz, wait_for_checkpoints)
     from ..utils.logging_utils import setup_logging
@@ -137,9 +166,9 @@ def mode_train(args, cfg):
         level=logging.DEBUG if cfg.DEBUG else logging.INFO)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     ds = _dataset(cfg, cfg.TRAIN.DATASETS)
-    device = _device(args)
+    mesh = _mesh(args, logger)
     model = _init_model(cfg, args.weights or cfg.TRAIN.WEIGHTS or None,
-                        cfg.RNG_SEED, device, train=True)
+                        cfg.RNG_SEED, mesh.device, train=True)
     state = create_train_state(cfg, model)
     ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
     if cfg.TRAIN.AUTO_RESUME:
@@ -147,11 +176,14 @@ def mode_train(args, cfg):
         if restored is not None:
             state = restored
             logger.info("auto-resumed from step %d", step)
+    replicate(mesh, state)
+    writer = mesh.rank == 0
 
-    step_fn = make_train_step(model, cfg)
+    step_fn = make_train_step(model, cfg, mesh)
     stats = TrainingStats(
         cfg.SOLVER.MAX_ITER,
-        jsonl_path=os.path.join(cfg.OUTPUT_DIR, "training_stats.jsonl"))
+        jsonl_path=(os.path.join(cfg.OUTPUT_DIR, "training_stats.jsonl")
+                    if writer else None))
     batcher = ClipBatcher(ds, cfg, train=True, seed=cfg.RNG_SEED)
 
     def lr_at(i):
@@ -172,8 +204,9 @@ def mode_train(args, cfg):
     def batches():
         """Epoch after epoch through the prefetcher, until closed."""
         while True:
-            with DeviceLoader(batcher.epoch(cfg.TRAIN.IMS_PER_BATCH), device,
-                              prefetch=cfg.DATA.PREFETCH) as loader:
+            with DeviceLoader(batcher.epoch(
+                    cfg.TRAIN.IMS_PER_BATCH * mesh.size, mesh=mesh),
+                    mesh.device, prefetch=cfg.DATA.PREFETCH) as loader:
                 yield from loader
 
     it = state.step
@@ -200,19 +233,26 @@ def mode_train(args, cfg):
                 if prev is not None:         # drain before snapshotting
                     log_metrics(*prev)
                     prev = None
-                save_checkpoint(ckpt_dir, state, it)
+                if writer:
+                    save_checkpoint(ckpt_dir, state, it)
+                barrier(mesh)
             if it >= cfg.SOLVER.MAX_ITER:
                 break
         if prev is not None:
             log_metrics(*prev)
-    wait_for_checkpoints(ckpt_dir)
     final = os.path.join(cfg.OUTPUT_DIR, "model_final.npz")
-    save_weights_npz(final, model)
-    logger.info("saved final weights to %s", final)
+    if writer:
+        wait_for_checkpoints(ckpt_dir)
+        save_weights_npz(final, model)
+        logger.info("saved final weights to %s", final)
+    barrier(mesh)
     return final
 
 
 def mode_test(args, cfg):
+    """Detect over TEST.DATASETS → OUTPUT_DIR/detections.pkl (or
+    `--det-out`), scored unless `--video-range` makes it one shard; over
+    ranks, each global batch is sharded and rank 0 writes and scores."""
     from ..engine.inference import run_inference
     from ..utils.io import save_object
     from ..utils.logging_utils import setup_logging
@@ -223,15 +263,25 @@ def mode_test(args, cfg):
     ds = _dataset(cfg, cfg.TEST.DATASETS or cfg.TRAIN.DATASETS)
     out = args.det_out or os.path.join(cfg.OUTPUT_DIR, "detections.pkl")
     if args.subprocess_shards and args.subprocess_shards > 1:
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise SystemExit(
+                "--subprocess-shards runs its own processes: it cannot run "
+                f"under {dist.get_world_size()} ranks (launch one process, "
+                "or drop it and let the ranks shard the batches)")
         return _test_in_shards(args, cfg, ds, out, logger)
+    mesh = _mesh(args, logger)
     model = _init_model(cfg, args.weights or cfg.TEST.WEIGHTS or None,
-                        cfg.RNG_SEED, _device(args))
+                        cfg.RNG_SEED, mesh.device)
     vrange = _video_range(args)
     timer = Timer()
     timer.tic()
     dets = run_inference(cfg, model, ds, batch_size=args.batch_size,
-                         max_clips=args.max_clips, video_range=vrange)
+                         max_clips=args.max_clips, video_range=vrange,
+                         mesh=mesh)
     dt = timer.toc()
+    if mesh.rank != 0:
+        return out
     n_frames = sum(len(v) for v in dets.values())
     logger.info("inference over %d frames in %.1fs (%.2f fps)",
                 n_frames, dt, n_frames / max(dt, 1e-9))
@@ -260,8 +310,9 @@ def _test_in_shards(args, cfg, ds, out, logger):
     cmd = [sys.executable, "-m", "detectandtrack_tpu_torch.cli.launch",
            "--mode", "test", "--cfg", args.cfg,
            "--video-range", "{start}:{end}", "--det-out", "{out}",
-           "--out", cfg.OUTPUT_DIR, "--device", args.device,
-           "--batch-size", str(args.batch_size)]
+           "--out", cfg.OUTPUT_DIR, "--device", args.device]
+    if args.batch_size is not None:
+        cmd += ["--batch-size", str(args.batch_size)]
     if args.weights:
         cmd += ["--weights", args.weights]
     cmd += [str(o) for o in args.opts]
@@ -367,7 +418,8 @@ def mode_eval(args, cfg):
 def mode_stream(args, cfg):
     """Online detect→track in one pass: every batch read back from the
     device goes straight to the per-video trackers while the next batch
-    runs; no detections.pkl in between. Results equal test + track."""
+    runs; no detections.pkl in between. Results equal test + track. Over
+    ranks, each global batch is sharded and rank 0 tracks and writes."""
     from ..engine.inference import run_inference
     from ..tracking.engine import StreamingTrackingSink
     from ..utils.io import save_object
@@ -377,14 +429,18 @@ def mode_stream(args, cfg):
     logger = setup_logging()
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     ds = _dataset(cfg, cfg.TEST.DATASETS or cfg.TRAIN.DATASETS)
+    mesh = _mesh(args, logger)
     model = _init_model(cfg, args.weights or cfg.TEST.WEIGHTS or None,
-                        cfg.RNG_SEED, _device(args))
-    sink = StreamingTrackingSink(cfg=cfg)
+                        cfg.RNG_SEED, mesh.device)
+    sink = StreamingTrackingSink(cfg=cfg) if mesh.rank == 0 else None
     timer = Timer()
     timer.tic()
     dets = run_inference(cfg, model, ds, batch_size=args.batch_size,
                          max_clips=args.max_clips,
-                         video_range=_video_range(args), frame_sink=sink)
+                         video_range=_video_range(args), frame_sink=sink,
+                         mesh=mesh)
+    if mesh.rank != 0:
+        return None
     tracked = sink.results()
     dt = timer.toc()
     n_frames = sum(len(v) for v in tracked.values())
@@ -490,7 +546,16 @@ def main(argv=None):
     if args.mode in _NOT_PORTED:
         raise SystemExit(f"--mode {args.mode} is not ported to "
                          f"detectandtrack_tpu_torch: {_NOT_PORTED[args.mode]}")
-    return _MODES[args.mode](args, _load_cfg(args))
+    # A multi-process launch starts its process group before anything
+    # touches the card (a no-op without torchrun's environment).
+    import torch.distributed as dist
+    from ..parallel.mesh import maybe_init_distributed
+    started = maybe_init_distributed(args.device)
+    try:
+        return _MODES[args.mode](args, _load_cfg(args))
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, shard_rows
 from .posetrack import FrameRecord, PosetrackDataset
 
 
@@ -285,11 +286,17 @@ class ClipBatcher:
         return batches
 
     def epoch(self, batch_size: int,
-              num_workers: Optional[int] = None
+              num_workers: Optional[int] = None,
+              mesh: Optional[Mesh] = None
               ) -> Iterator[Dict[str, np.ndarray]]:
         """Shuffled epoch of stacked batches; clip decode (cv2) runs on
         DATA.NUM_WORKERS threads (cv2 releases the GIL), replacing the
-        reference's RoIDataLoader thread pool."""
+        reference's RoIDataLoader thread pool.
+
+        With a mesh, `batch_size` is the global batch: every rank draws the
+        same plan (the batcher's seed is the same on every rank) and
+        decodes only its own rows of each batch (`shard_rows`), as JAX's
+        multi-process `shard_batch` takes each process's local rows."""
         from concurrent.futures import ThreadPoolExecutor
 
         cfg = self.cfg
@@ -297,7 +304,9 @@ class ClipBatcher:
         max_size = cfg.TRAIN.MAX_SIZE if self.train else cfg.TEST.MAX_SIZE
         workers = num_workers if num_workers is not None else (
             cfg.DATA.NUM_WORKERS)
-        batches = self._batch_plan(batch_size)
+        rows = shard_rows(mesh, batch_size)
+        batches = [(bucket, ss[rows])
+                   for bucket, ss in self._batch_plan(batch_size)]
 
         def load_one(args):
             bucket, spec = args

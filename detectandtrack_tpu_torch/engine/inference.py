@@ -1,10 +1,11 @@
 """Clip detection entry points, dataset-scale inference, and the host-side
 hand-off to the tracker.
 
-Port of detectandtrack_tpu/engine/inference.py on one device
-(`make_detect_fn`, `make_kps_aug_fns`, `window_proposals`, `clip_slice`,
-`detections_to_frames`, `run_inference`), with the static shapes of the
-detect outputs (`detect_output_shapes`). The per-frame dicts feed the
+Port of detectandtrack_tpu/engine/inference.py (`make_detect_fn`,
+`make_kps_aug_fns`, `window_proposals`, `clip_slice`,
+`detections_to_frames`, `run_inference`, on one device or sharded over the
+ranks of a mesh), with the static shapes of the detect outputs
+(`detect_output_shapes`). The per-frame dicts feed the
 port's host tracker (`tracking/engine.py`).
 """
 
@@ -20,6 +21,7 @@ from ..core.config import Config
 from ..data.pipeline import ClipSpec, choose_scale, load_clip, pick_bucket
 from ..data.posetrack import PosetrackDataset
 from ..models.detector import GeneralizedRCNN
+from ..parallel.mesh import Mesh, gather_batch, replicate, shard_rows
 from ..utils.io import load_object
 from .augment import merge_multiscale_detections, rescale_detections
 
@@ -203,11 +205,12 @@ def run_inference(
     cfg: Config,
     model: GeneralizedRCNN,
     dataset: PosetrackDataset,
-    batch_size: int = 1,
+    batch_size: Optional[int] = None,
     max_clips: Optional[int] = None,
     video_range: Optional[Tuple[int, int]] = None,
     frame_sink=None,
     dispatch_log: Optional[Dict] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, List[Dict[str, np.ndarray]]]:
     """Detect over the whole dataset on the model's device → per-video
     per-frame detections (original image coordinates).
@@ -236,7 +239,23 @@ def run_inference(
     records `(vid, frame_idx) → time.perf_counter()` when the frame's batch
     was handed to the model (a frame written twice keeps its final
     writer's time).
+
+    With a mesh (`parallel/mesh.py`, one process per card), `batch_size`
+    is the global batch, as JAX's mesh path takes it: it defaults to the
+    world size and must be a multiple of it (one process: 1). The model is
+    broadcast from rank 0 first. Every rank walks the same windows, queues,
+    padding and tails and keeps the same `dispatch_log`; it decodes and
+    detects only its own rows of each batch (`shard_rows`; KPS_AUG
+    heatmaps stay on the rank that made them, which decodes its rows), and
+    each read-back is gathered over the ranks on the host (`read_back`),
+    so every rank returns the same dict. Only rank 0 calls `frame_sink`.
     """
+    if batch_size is None:
+        batch_size = mesh.size if mesh is not None else 1
+    rows = shard_rows(mesh, batch_size)
+    replicate(mesh, model)
+    if mesh is not None and mesh.rank != 0:
+        frame_sink = None
     device = next(model.parameters()).device
     t = cfg.VIDEO.NUM_FRAMES if cfg.VIDEO.VIDEO_ON else 1
     stride = cfg.VIDEO.FRAME_STRIDE if cfg.VIDEO.VIDEO_ON else 1
@@ -322,7 +341,7 @@ def run_inference(
 
     def p2_consume(entry):
         kps, entries, _ = entry
-        kps = _host(kps)
+        kps = read_back({"keypoints": kps}, mesh)["keypoints"]
         for i, (vid, start, merged, _) in enumerate(entries):
             merged["keypoints"] = np.asarray(kps[i], np.float64)
             emit(vid, start, merged)
@@ -334,6 +353,7 @@ def run_inference(
         full = list(entries)
         while len(full) < batch_size:   # pad the tail batch by repetition
             full.append(full[-1])
+        full = full[rows]
         boxes_orig = np.stack([e[2]["boxes"] for e in full]).astype(
             np.float32)                                     # (B, D, 4T)
         hms, staged = [], []
@@ -362,15 +382,15 @@ def run_inference(
 
     def consume(entry):
         det, metas, bucket, _ = entry
-        det = {k: _host(v) for k, v in det.items()}
-        for bi, meta in enumerate(metas):
-            vid, start, scale = meta[:3]
+        det = read_back(det, mesh)
+        for bi, (vid, start, target) in enumerate(metas):
+            scale = float(det["scale"][bi])
             single = rescale_detections(clip_slice(det, bi), scale)
             if n_passes == 1:
                 emit(vid, start, single)
                 continue
             if kps_aug:
-                single["_pass"] = (meta[3], scale, bucket)
+                single["_pass"] = (target, scale, bucket)
             passes = acc.setdefault((vid, start), [])
             passes.append(single)
             if len(passes) == n_passes:
@@ -401,9 +421,22 @@ def run_inference(
                 p2_consume(e)
             del p2_pending[:]
 
-    # Per-bucket batch queues: a clip lands in the smallest bucket that
-    # fits its scaled shape.
+    # Per-bucket batch queues of (video, start, scale target): a clip lands
+    # in the smallest bucket that fits its scaled shape, and is decoded
+    # when its batch is submitted, by the rank whose row it is.
     queues: Dict[Tuple[int, int], List] = {b: [] for b in buckets}
+
+    def load(vid, start, target, bucket):
+        item = load_clip(
+            dataset, ClipSpec(vid, start), t, stride,
+            cfg.DATA.PIXEL_MEANS, cfg.DATA.PIXEL_STDS,
+            target, cfg.TEST.MAX_SIZE, bucket_hw=bucket,
+            max_gt=1, num_keypoints=cfg.KRCNN.NUM_KEYPOINTS)
+        if proposal_db is not None:
+            item["tubes"], item["tubes_valid"] = window_proposals(
+                proposal_db, dataset, vid, start, t, stride,
+                cfg.RPN.POST_NMS_TOP_N_TEST)
+        return item
 
     def submit(bucket):
         items = queues[bucket]
@@ -412,14 +445,15 @@ def run_inference(
         full = list(items)
         while len(full) < batch_size:  # pad the last partial batch
             full.append(full[-1])
-        clips, buf = _stage([it[2]["clips"] for it in full], device)
+        mine = [load(*it, bucket) for it in full[rows]]
+        clips, buf = _stage([it["clips"] for it in mine], device)
         staged = [buf]
         if proposal_db is not None:
             # Proposal files are in original image coords; the model runs
             # in bucket coords, so scale each clip's tubes by its scale.
-            tubes, tbuf = _stage([it[2]["tubes"] * np.float32(it[2]["scale"])
-                                  for it in full], device)
-            tvalid, vbuf = _stage([it[2]["tubes_valid"] for it in full],
+            tubes, tbuf = _stage([it["tubes"] * np.float32(it["scale"])
+                                  for it in mine], device)
+            tvalid, vbuf = _stage([it["tubes_valid"] for it in mine],
                                   device)
             staged += [tbuf, vbuf]
             det = detect(clips, tubes, tvalid)
@@ -433,12 +467,12 @@ def run_inference(
                     idx = start_ + fi * stride
                     if idx < nv:      # later (tail) windows overwrite
                         dispatch_log[(vid_, idx)] = now
-        # The meta carries the scale target so phase 2 can re-decode the
-        # clip (the pixels are not kept).
-        metas = [(vid, start, float(it["scale"]),
-                  it.get("target") if kps_aug else None)
-                 for (vid, start, it) in items]
-        pending.append((det, metas, bucket, staged))
+        # Each row's scale is read back with its outputs (only the rank
+        # that decoded a clip knows it); the meta keeps the scale target so
+        # phase 2 can re-decode the clip (the pixels are not kept).
+        det = dict(det, scale=np.asarray([it["scale"] for it in mine],
+                                         np.float32))
+        pending.append((det, items, bucket, staged))
         if len(pending) >= 2:          # double-buffer: read the older one
             for entry in pending[:-1]:
                 consume(entry)
@@ -453,17 +487,7 @@ def run_inference(
             sh = int(round((first.height or 1) * scale))
             sw = int(round((first.width or 1) * scale))
             bucket = pick_bucket(sh, sw, buckets)
-            item = load_clip(
-                dataset, ClipSpec(vid, start), t, stride,
-                cfg.DATA.PIXEL_MEANS, cfg.DATA.PIXEL_STDS,
-                target, cfg.TEST.MAX_SIZE, bucket_hw=bucket,
-                max_gt=1, num_keypoints=cfg.KRCNN.NUM_KEYPOINTS)
-            item["target"] = target
-            if proposal_db is not None:
-                item["tubes"], item["tubes_valid"] = window_proposals(
-                    proposal_db, dataset, vid, start, t, stride,
-                    cfg.RPN.POST_NMS_TOP_N_TEST)
-            queues[bucket].append((vid, start, item))
+            queues[bucket].append((vid, start, target))
             if len(queues[bucket]) == batch_size:
                 submit(bucket)
     for b in buckets:
@@ -472,3 +496,11 @@ def run_inference(
 
     return {vid: [frames[k] for k in sorted(frames)]
             for vid, frames in results.items()}
+
+
+def read_back(out: Dict, mesh: Optional[Mesh] = None
+              ) -> Dict[str, np.ndarray]:
+    """Outputs of this rank's rows (tensors or arrays) → host arrays of the
+    global batch: `parallel.mesh.gather_batch` over the mesh, in rank
+    order; the host copies alone without one."""
+    return gather_batch(mesh, {k: _host(v) for k, v in out.items()})

@@ -1,12 +1,17 @@
-"""Training on one device: loss forward, SGD step (port of
-detectandtrack_tpu/engine/train.py without its shard_map path).
+"""Training: loss forward, SGD step, on one device or data-parallel over
+ranks (port of detectandtrack_tpu/engine/train.py).
 
-`make_train_step(model, cfg)` returns `step_fn(state, batch) → (state,
-metrics)`: forward with targets and losses, backward through the RoIAlign
-and conv1 kernels' autograd Functions, then the update of `make_optimizer`
-(clip by global norm → masked weight decay → SGD with momentum → zero for
-the frozen stages), in place on the model's parameters. After a step each
-parameter's `.grad` holds that step's gradient.
+`make_train_step(model, cfg, mesh=None)` returns `step_fn(state, batch) →
+(state, metrics)`: forward with targets and losses, backward through the
+RoIAlign and conv1 kernels' autograd Functions, then the update of
+`make_optimizer` (clip by global norm → masked weight decay → SGD with
+momentum → zero for the frozen stages), in place on the model's
+parameters. With a mesh of more than one rank (`parallel/mesh.py`, one
+process per card), each rank runs the forward and backward on its own rows
+with its own draws, then the gradients and the metrics are averaged over
+the ranks in one all-reduce before the update, as JAX's `shard_map` step
+`pmean`s them: the clip sees the global gradient. After a step each
+parameter's `.grad` holds that step's (global) gradient.
 
 Batch contract (padded, fixed shapes, tensors on the model's device):
   clips          (B, T, H, W, 3) float32
@@ -23,7 +28,8 @@ Random sampling enters as draws (see engine/targets.py): a `Draws`
 callable gives, for a sampling stage ("rpn" or "proposals") and its
 (batch, candidates) size, the uniforms the fg and bg samplers rank by. By
 default they come from a CPU `torch.Generator` seeded by (RNG_SEED, step),
-so a run on any device samples the same rows.
+so a run on any device samples the same rows; rank r > 0 of a mesh seeds
+from (RNG_SEED, step, r), as JAX folds the shard index into its key.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from torch import nn
 
 from ..models.detector import GeneralizedRCNN
+from ..parallel.mesh import Mesh, pmean
 from ..models.rpn import anchor_cell_for_level, flatten_rpn_outputs
 from ..ops.anchors import shifted_anchor_field
 from ..utils.lr_policy import make_schedule
@@ -53,9 +60,17 @@ class TrainState:
     step: int
 
 
-def generator_draws(seed: int, step: int) -> Draws:
-    """Draws from a CPU generator seeded by (seed, step)."""
-    gen = torch.Generator().manual_seed(seed * 2 ** 32 + step)
+def generator_draws(seed: int, step: int, shard: int = 0) -> Draws:
+    """Draws from a CPU generator seeded by (seed, step): seed·2^32 + step
+    for shard 0 (one process, or rank 0), and for a rank `shard` > 0 a
+    seed numpy's SeedSequence mixes from (seed, step, shard), so the ranks
+    sample from streams apart from each other's."""
+    if shard == 0:
+        gen_seed = seed * 2 ** 32 + step
+    else:
+        gen_seed = int(np.random.SeedSequence([seed, step, shard])
+                       .generate_state(1, np.uint64)[0])
+    gen = torch.Generator().manual_seed(gen_seed)
 
     def draw(stage: str, b: int, n: int):
         u = torch.rand((2, b, n), generator=gen)
@@ -276,16 +291,21 @@ def create_train_state(cfg, model: nn.Module) -> TrainState:
     return TrainState(params=params, momentum={}, step=0)
 
 
-def make_train_step(model: GeneralizedRCNN, cfg):
-    """→ step_fn(state, batch, draws=None) → (state, metrics): one SGD step
-    on one device; `draws` defaults to `generator_draws(RNG_SEED, step)`.
-    Metrics are detached 0-d tensors on the device."""
+def make_train_step(model: GeneralizedRCNN, cfg,
+                    mesh: Optional[Mesh] = None):
+    """→ step_fn(state, batch, draws=None) → (state, metrics): one SGD step;
+    `draws` defaults to `generator_draws(RNG_SEED, step, rank)`. With a
+    mesh, `batch` is this rank's rows of the global batch, and the
+    gradients and metrics are the means over the ranks (a parameter with
+    no gradient on a rank counts as zeros there, so every rank reduces the
+    same buffer). Metrics are detached 0-d tensors on the device."""
     opt = make_optimizer(cfg, model)
+    rank = mesh.rank if mesh is not None else 0
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 draws: Optional[Draws] = None):
         if draws is None:
-            draws = generator_draws(cfg.RNG_SEED, state.step)
+            draws = generator_draws(cfg.RNG_SEED, state.step, rank)
         for p in state.params.values():
             p.grad = None
         total, metrics = train_forward(
@@ -293,8 +313,18 @@ def make_train_step(model: GeneralizedRCNN, cfg):
             batch["gt_valid"], draws, batch.get("gt_masks"),
             batch.get("gt_mask_valid"))
         total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None and mesh.size > 1:
+            trained = [p for p in state.params.values() if p.requires_grad]
+            names = sorted(metrics)
+            means = pmean(mesh, [p.grad if p.grad is not None
+                                 else torch.zeros_like(p) for p in trained]
+                          + [metrics[k] for k in names])
+            for p, g in zip(trained, means):
+                p.grad = g
+            metrics = dict(zip(names, means[len(trained):]))
         opt.update(state)
         state = TrainState(state.params, state.momentum, state.step + 1)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step_fn

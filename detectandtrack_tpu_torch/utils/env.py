@@ -28,8 +28,12 @@ def card_line() -> str:
 
 def get_runtime_info() -> Dict[str, str]:
     """Python, platform, torch, CUDA, cuDNN and numpy versions, the device
-    and device count, and the card line ("n/a" without a card)."""
+    and device count, the card line ("n/a" without a card), and this
+    process's rank, world size and backend (0, 1 and "none" without a
+    process group), as JAX's reports its process count."""
     cuda = torch.cuda.is_available()
+    dist = torch.distributed
+    group = dist.is_available() and dist.is_initialized()
     cudnn = torch.backends.cudnn.version() if cuda else None
     try:
         card = card_line()
@@ -45,6 +49,9 @@ def get_runtime_info() -> Dict[str, str]:
         "device": torch.cuda.get_device_name(0) if cuda else "cpu",
         "device_count": str(torch.cuda.device_count() if cuda else 0),
         "card": card,
+        "rank": str(dist.get_rank() if group else 0),
+        "world_size": str(dist.get_world_size() if group else 1),
+        "backend": dist.get_backend() if group else "none",
     }
 
 

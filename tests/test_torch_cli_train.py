@@ -114,8 +114,8 @@ def run(tmp_path_factory):
             "params": params, "jax": root / "jax"}
 
 
-def _cli_draws(seed, step):
-    return jax_draws(seed, step, shard=0)
+def _cli_draws(seed, step, shard=0):
+    return jax_draws(seed, step, shard=shard)
 
 
 @pytest.fixture(scope="module")
@@ -199,8 +199,8 @@ def test_cli_train_resumes_from_latest_checkpoint(run, port_out, caplog,
     steps = []
     make = ttrain.make_train_step
 
-    def counting(model, cfg):
-        fn = make(model, cfg)
+    def counting(model, cfg, mesh=None):
+        fn = make(model, cfg, mesh)
 
         def step(state, batch, draws=None):
             steps.append(state.step)

@@ -294,8 +294,8 @@ _PORT_SOURCES = sorted(
 
 def test_walk_packages_reaches_the_tools_and_utils():
     """The no-JAX import run above walks the package with pkgutil: it
-    reaches the diagnostic kernel, the profiling utilities, every tool and
-    the fine-tuning modules."""
+    reaches the diagnostic kernel, the profiling utilities, every tool,
+    the fine-tuning modules and the data-parallel mesh."""
     import pkgutil
 
     import detectandtrack_tpu_torch as pkg
@@ -306,7 +306,8 @@ def test_walk_packages_reaches_the_tools_and_utils():
         "utils.roofline", "tools.diag_roialign", "tools.bench_roialign",
         "tools.bench_conv", "tools.capture_trace", "tools.trace_summary",
         "tools.conv_roofline", "models.inflate", "utils.detectron_import",
-        "utils.training_stats", "utils.subprocess_utils", "utils.vis")}
+        "utils.training_stats", "utils.subprocess_utils", "utils.vis",
+        "parallel.mesh")}
     assert want <= mods, want - mods
 
 
