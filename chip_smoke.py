@@ -10,9 +10,9 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      nvcc for sm_90a, the tracker's hungarian.cpp with g++);
   3. conv1 against its plain version (pad + F.conv3d) at the main path's
      (2, 8, 800, 1344, 3) clip at t=3 and t=1 and an odd-sized t=1 clip:
-     bf16 through the tensor-core kernel, f32 through the CUDA-core kernel;
-     at full size also the CUDA-core kernel on bf16 and one F.conv3d call
-     (cuDNN), the bound and the kernel's share of it;
+     bf16 through the bf16 tensor-core kernel, f32 through the 3-pass TF32
+     kernel; at full size also one F.conv3d call (cuDNN, TF32 off), the
+     bound and the kernel's share of it;
   4. RoIAlign kernel (K1) against its plain version at the box stage (S=16,
      K=300, P=7) and the keypoint stage (K=20, P=14) over the four FPN
      levels of an 800x1344 clip, f32 and bf16, with realistic tubes plus
@@ -129,6 +129,8 @@ BOX_CFG = "configs/video/3d_R50_T8_tubes_kps.yaml"
 TRAIN_SMOKE_LR = 1e-4      # SOLVER.BASE_LR of the full-width training phase
 GRAD_REL_TOL = 1e-3         # card vs CPU gradients, of each one's max |g|
 GRAD_FLOOR = 1e-6           # ... or this much, whichever is larger
+RELU_TIE_TOL = 1e-4         # a ReLU input the devices may decide apart,
+                            # of its tensor's max |x|
 SMALL_OPTS = [              # tests/test_golden.py's model: R-18, T=2, f32
     "MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
     "VIDEO.VIDEO_ON", True, "VIDEO.NUM_FRAMES", 2,
@@ -223,12 +225,11 @@ def _check(name, got, ref, dtype, torch):
 def phase_conv1(torch, results):
     """conv1 against its plain version: the main path's clip at t=3 and
     t=1 and an odd-sized t=1 clip, bf16 (the tensor-core kernel) and f32
-    (the CUDA-core kernel); at the full-size shapes also the CUDA-core
-    kernel on bf16 and one F.conv3d call (cuDNN) on the padded input, with
-    the bound and the kernel's share of it."""
+    (the 3-pass TF32 kernel); at the full-size shapes also one F.conv3d
+    call (cuDNN) on the padded input, with the bound and the kernel's share
+    of it."""
     import torch.nn.functional as F
-    from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_cuda_core,
-                                                        conv1_reference)
+    from detectandtrack_tpu_torch.kernels.conv1 import conv1, conv1_reference
     from detectandtrack_tpu_torch.utils import roofline
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [((2, 8, 800, 1344, 3), 3), ((2, 1, 800, 1344, 3), 1),
@@ -238,12 +239,10 @@ def phase_conv1(torch, results):
         k7 = torch.randn((t, 7, 7, 3, 64), device="cuda", generator=gen) * (
             2.0 / (t * 49 * 64)) ** 0.5
         for dtype in (torch.bfloat16, torch.float32):
-            if t == 1 and shape[2] == 800 and dtype == torch.float32:
-                continue
             xd, kd = x.to(dtype), k7.to(dtype)
             got = conv1(xd, kd, t, dtype)
             ref = conv1_reference(xd, kd, t, dtype)
-            route = "tensor-core" if dtype == torch.bfloat16 else "CUDA-core"
+            route = "tensor-core" if dtype == torch.bfloat16 else "3-pass TF32"
             name = f"conv1 {shape} t={t} {str(dtype)[6:]} ({route} kernel)"
             err, tol = _check(name, got, ref, dtype, torch)
             del got, ref
@@ -264,10 +263,6 @@ def phase_conv1(torch, results):
                 line += (f", F.conv3d {library_ms:.3f} ms; bound "
                          f"{bound_ms:.3f} ms ({bound_by}), "
                          f"{100 * bound_ms / ms:.1f}% of it")
-                if dtype == torch.bfloat16:
-                    cc_ms = _time_ms(torch, lambda: conv1_cuda_core(
-                        xd, kd, t, dtype))
-                    line += f"; CUDA-core kernel on bf16 {cc_ms:.3f} ms"
                 if t == 3:
                     key = "conv1" if dtype == torch.bfloat16 else "conv1_f32"
                     results[key] = dict(max_abs_err=err, ms=ms,
@@ -703,17 +698,17 @@ def _heads(model):
 def _reset_counters():
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
-    conv1.launches = conv1.launches_tc = conv1.launches_cc = 0
+    conv1.launches = conv1.launches_tc = conv1.launches_f32 = 0
     ra.roi_align_multilevel.launches = 0
     ra.roi_align_backward.launches = ra.backward_prep.launches = 0
 
 
 def _read_counters():
-    """The launches since `_reset_counters`: conv1's tensor-core (bf16) and
-    CUDA-core (f32) kernels, K1, the RoIAlign backward's gather and prep."""
+    """The launches since `_reset_counters`: conv1's bf16 and f32 (3-pass
+    TF32) kernels, K1, the RoIAlign backward's gather and prep."""
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
-    return {"conv1": conv1.launches_tc, "conv1_f32": conv1.launches_cc,
+    return {"conv1": conv1.launches_tc, "conv1_f32": conv1.launches_f32,
             "roi_align": ra.roi_align_multilevel.launches,
             "roi_align_backward": ra.roi_align_backward.launches,
             "roi_align_backward_prep": ra.backward_prep.launches}
@@ -904,23 +899,79 @@ def phase_train_parity(torch):
     on R-18 bodies. Each runs twice: with the conv libraries the paths run
     (cuDNN on the card, oneDNN on the CPU), and with torch's own convs on
     both devices, which holds the port's code without the two libraries'
-    different f32 rounding. Losses 1e-4; every gradient GRAD_REL_TOL of
-    its largest entry, or the case's own bound across the libraries."""
+    different f32 rounding. A ReLU's gradient jumps where its input
+    crosses zero, so an input within rounding of zero makes a step's
+    gradients differ by a whole term (tools/parity_ties.py: one ulp of
+    noise on conv1's output flips up to two of the golden step's ReLU
+    decisions, at 2e-8 to 5e-7 of their tensor's max, and moves a gradient
+    by up to 1.9e-2 of its max). So the CPU step takes each ReLU's
+    decision (x > 0) from the card's step, call by call, and every
+    decision where the CPU's own input disagrees must sit within
+    RELU_TIE_TOL of its tensor's max |x|. Losses 1e-4; every gradient
+    GRAD_REL_TOL of its largest entry, or the case's own bound across the
+    libraries."""
+    import torch.nn.functional as F
     from detectandtrack_tpu_torch.core.config import load_cfg
     from detectandtrack_tpu_torch.engine.train import (create_train_state,
                                                         make_train_step)
     from detectandtrack_tpu_torch.models.detector import build_model
 
-    def one_step(cfg, batch, dev):
+    relu = F.relu
+
+    class ReluAs(torch.autograd.Function):
+        """ReLU with its decision given: x where `keep`, else 0, and the
+        gradient where `keep`."""
+
+        @staticmethod
+        def forward(ctx, x, keep):
+            ctx.save_for_backward(keep)
+            return torch.where(keep, x, torch.zeros_like(x))
+
+        @staticmethod
+        def backward(ctx, grad):
+            keep, = ctx.saved_tensors
+            return torch.where(keep, grad, torch.zeros_like(grad)), None
+
+    def one_step(cfg, batch, dev, decisions=None):
+        """→ (losses, gradients, the ReLU decisions, ties). Without
+        `decisions` each F.relu runs as it is and its decision is kept;
+        with them each call takes its decision from the list, and a call
+        where its own decision differs adds (elements that differ, their
+        largest |x| over the tensor's max |x|) to the ties."""
+        kept, ties = [], []
+
+        def step_relu(x, inplace=False):
+            if decisions is None:
+                kept.append((x > 0).cpu())
+                return relu(x, inplace)
+            keep = decisions[len(kept)].to(x.device)
+            kept.append(keep)
+            if keep.shape != x.shape:
+                raise RuntimeError(f"train parity: ReLU {len(kept)} takes "
+                                   f"{tuple(x.shape)} on the CPU, "
+                                   f"{tuple(keep.shape)} on the card")
+            differ = (x > 0) != keep
+            if bool(differ.any()):
+                ties.append((int(differ.sum()), (
+                    x[differ].abs().max() / x.abs().max()).item()))
+            return ReluAs.apply(x, keep)
+
         model = build_model(cfg, device=dev, seed=0, train=True)
         state = create_train_state(cfg, model)
-        state, metrics = make_train_step(model, cfg)(
-            state, {k: v.to(dev) for k, v in batch.items()})
+        F.relu = step_relu
+        try:
+            state, metrics = make_train_step(model, cfg)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+        finally:
+            F.relu = relu
+        if decisions is not None and len(kept) != len(decisions):
+            raise RuntimeError(f"train parity: {len(kept)} ReLU calls on "
+                               f"the CPU, {len(decisions)} on the card")
         return ({k: float(v) for k, v in metrics.items()},
                 # No gradient (C4's unused res5) counts as zero.
                 {k: (p.grad if p.grad is not None
                      else torch.zeros_like(p)).cpu()
-                 for k, p in state.params.items()})
+                 for k, p in state.params.items()}, kept, ties)
 
     for label, path, opts, cudnn_tol in PARITY_TRAIN_CASES:
         cfg = load_cfg(path and os.path.join(REPO, path), opts=opts)
@@ -930,11 +981,18 @@ def phase_train_parity(torch):
             libs = convs == "cuDNN vs oneDNN"
             torch.backends.mkldnn.enabled = torch.backends.cudnn.enabled = libs
             try:
-                cpu_loss, cpu_grad = one_step(cfg, batch, "cpu")
-                gpu_loss, gpu_grad = one_step(cfg, batch, "cuda")
+                gpu_loss, gpu_grad, decisions, _ = one_step(cfg, batch, "cuda")
+                cpu_loss, cpu_grad, _, ties = one_step(cfg, batch, "cpu",
+                                                       decisions)
             finally:
                 torch.backends.mkldnn.enabled = True
                 torch.backends.cudnn.enabled = True
+            tie = max((r for _, r in ties), default=0.0)
+            if not tie <= RELU_TIE_TOL:
+                raise RuntimeError(f"train parity {label} {convs}: a ReLU "
+                                   f"decides otherwise on the card at "
+                                   f"{tie:.3g} of its input's max > "
+                                   f"{RELU_TIE_TOL}")
             loss_err = {k: abs(gpu_loss[k] - v) for k, v in cpu_loss.items()}
             if set(gpu_loss) != set(cpu_loss) or not all(
                     e <= 1e-4 * max(1.0, abs(cpu_loss[k]))
@@ -958,7 +1016,10 @@ def phase_train_parity(torch):
                   f"max_abs_err {max(loss_err.values()):.3g} (tol 1e-4); "
                   f"{len(cpu_grad)} gradients, worst {worst[1]} at "
                   f"{worst[0]:.3g} of its max (tol {tol}, floor "
-                  f"{GRAD_FLOOR})", flush=True)
+                  f"{GRAD_FLOOR}); {len(decisions)} ReLUs, "
+                  f"{sum(n for n, _ in ties)} decisions the card's, the "
+                  f"largest at {tie:.3g} of its input's max (tol "
+                  f"{RELU_TIE_TOL})", flush=True)
 
 
 def _kernel_vs_plain(torch, tag, name, dtype, kern, plain):
@@ -2468,7 +2529,7 @@ def main() -> int:
     multigpu = phase_multigpu(torch, per_step)
     phase_surface_kernels(torch)
     surface = phase_surface(torch)
-    # The f32 models of the parity phases run conv1's CUDA-core kernel.
+    # The f32 models of the parity phases run conv1's f32 kernel.
     _reset_counters()
     phase_parity(torch)
     phase_train_parity(torch)

@@ -26,27 +26,44 @@
 // at p=14 (C=256), bf16 products with f32 sums, so the bound's operations
 // are counted at the bf16 tensor-core peak; its bytes are the distinct patch
 // cells the pairs touch (at most 64 rows x 128 columns per level) plus the
-// output, written once. The contractions stay dense over all 64 taps, though
-// a row of a has at most two nonzeros: the tool exists to time the gather,
-// the select and the contractions apart, and a kernel that skipped the
-// zeros would time none of them. They run on the CUDA cores (f32 FMAs), so
-// this kernel cannot come near the tensor-core bound; that is left for a
-// later change.
+// output, written once: 0.079 ms at n=4800, p=7. What every pair really
+// moves is its own 2 MiB patch (64 x 64 x 256 bf16), from L2 where pairs
+// share cells: 10.1 GB at n=4800, the practical floor of every variant but
+// nodma. The contractions stay dense over all 64 taps, though a row of a
+// has at most two nonzeros: the tool exists to time the gather, the select
+// and the contractions apart, and a kernel that skipped the zeros would time
+// none of them.
 //
-// Design. The TPU kernel held the whole 2 MiB patch in VMEM behind two DMA
-// slots and semaphores. A Hopper block has 227 KB of shared memory, so one
-// block takes one (pair, 32-channel tile) and streams the patch's 64 rows
-// (4 KB each for the tile) through a 4-deep cp.async ring: the counterpart of
-// the DMA slots. Each of the 256 threads owns one (column, 8 channels) of
-// the tile: it copies its own 16 bytes of every row and reads back only
-// those, so the ring needs no block barrier. The first contraction's sums,
-// tmp[r][column][8 channels] for r < p, stay in the thread's registers in
-// f32 (64 floats at p <= 8, 128 at p <= 16). They are rounded to bf16, as
-// the TPU kernel rounds its intermediate, and staged in shared memory (28 KB
-// at p=7, 57 KB at p=14), where the second contraction reads them: one
-// thread per (r, q, 8 channels), 64 taps summed in f32, one 16-byte store.
+// Design: both contractions on the tensor cores, mma.sync.m16n8k8 bf16 with
+// f32 sums, in the transposed form, so that the small side p is N and not a
+// padded M: tmp^T[(x, c), r] = sum_y patch^T[(x, c), y] * a^T[y, r], then
+// out^T[(r, c), q] = sum_x tmp^T[(r, c), x] * a^T[x, q]. A (the patch, then
+// tmp) comes from shared memory with ldmatrix.trans (rows are y or x, 16
+// bytes of channels each); B (a^T, p padded to 8 or 16 columns, zero past
+// p) is built in registers from x1, as interp_matrix builds it, and is the
+// same for both contractions. One block of 8 warps takes one (pair,
+// 32-channel tile); warp w owns patch columns 8w..8w+7, 16 m-tiles of 16
+// channels, and gathers those columns itself, 64 contiguous bytes of a map
+// cell per 4 lanes (two 32-byte sectors: 16-channel tiles, one sector a
+// cell, gather at half the rate). The 64 patch rows come in as 8 K steps of
+// 8 rows with 16-byte cp.async through a 3-deep ring (32 KB a step, the counterpart of
+// the TPU kernel's two DMA slots), and the warp contracts each step as it
+// lands: a warp waits only on its own copies (__syncwarp, no block barrier)
+// and the gather overlaps the contraction. k8 steps (not k16) keep a ring
+// stage at 32 KB, so two blocks fit an SM at p <= 8 (96 KB and 128
+// registers each). 16-byte units are XOR-swizzled by row so that
+// ldmatrix's 8 rows hit 8 bank groups. The first contraction's sums are
+// rounded to bf16, as the TPU kernel rounds its intermediate, and staged as
+// tmp[r][x][c] in the ring once every warp is done with it (planes of 257
+// units, so the 2-byte stores of 4 r's hit 4 bank groups; units swizzled by
+// (x >> 1) & 3 for ldmatrix); warp w then does the second contraction for
+// r = w and w + 8, and the p x p x 32 output tile is staged and written with
+// 16-byte stores. nodma reads a zero-filled first stage 8 times; nodot
+// gathers all 64 rows the same way and writes patch[:p, :p] + bf16(x1).
 // Dynamic shared memory is opted into on every call (the setting is per
-// device).
+// device). At n=4800, p=7: full 1.297 ms, nodma 0.657, nodot 1.303 (the
+// CUDA-core kernel it replaced: 3.876, 3.326, 1.848; NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_smoke.py's [diag] lines).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,9 +75,15 @@ namespace {
 
 constexpr int kPatch = 64;                        // patch rows and columns
 constexpr int kTileC = 32;                        // channels per block
-constexpr int kThreads = kPatch * kTileC / 8;     // one per 16-byte chunk
-constexpr int kStages = 4;                        // rows in flight
-constexpr int kRowBytes = kPatch * kTileC * 2;    // one tile row, 4 KB
+constexpr int kWarps = 8;                         // 8 patch columns each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStepRows = 8;                      // patch rows per K step
+constexpr int kSteps = kPatch / kStepRows;        // 8
+constexpr int kRing = 3;                          // K steps in flight
+constexpr int kRowUnits = kPatch * kTileC * 2 / 16;       // 16 B units a row
+constexpr int kStageBytes = kStepRows * kRowUnits * 16;   // 32 KB
+constexpr int kSmemBytes = kRing * kStageBytes;           // 96 KB
+constexpr int kTmpPlane = kRowUnits + 1;          // units per tmp plane (r)
 constexpr int kMaxLevels = 8;
 
 enum Variant { kFull = 0, kNoSwitch = 1, kNoDma = 2, kNoDot = 3 };
@@ -68,13 +91,6 @@ enum Variant { kFull = 0, kNoSwitch = 1, kNoDma = 2, kNoDot = 3 };
 struct Levels {
   const __nv_bfloat16* ptr[kMaxLevels];
 };
-
-template <int PM>
-size_t smem_bytes(int p) {
-  return static_cast<size_t>(kStages) * kRowBytes +
-         static_cast<size_t>(kPatch) * PM * sizeof(float) +
-         static_cast<size_t>(p) * kPatch * kTileC * 2;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -92,47 +108,75 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void unpack8(const uint4 u, float* v) {
-  const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x8, row) * b (8x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_k8(float* d, uint32_t a0, uint32_t a1,
+                                       uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// bf16(max(0, 1 - |j - x1|)): one entry of the interpolation matrix.
+__device__ __forceinline__ float interp(int j, float x1) {
+  return fmaxf(0.0f, 1.0f - fabsf(static_cast<float>(j) - x1));
+}
+// The entries j and j + 1 as a bf16 pair, j in the low half.
+__device__ __forceinline__ uint32_t interp_pair(int j, float x1) {
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(interp(j, x1), interp(j + 1, x1));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint4 add8(const uint4 u, float b) {
+  uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     __nv_bfloat162 b2;
-    *reinterpret_cast<uint32_t*>(&b2) = words[i];
+    *reinterpret_cast<uint32_t*>(&b2) = w[i];
     const float2 f = __bfloat1622float2(b2);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
+    const __nv_bfloat162 o = __floats2bfloat162_rn(f.x + b, f.y + b);
+    w[i] = *reinterpret_cast<const uint32_t*>(&o);
   }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ uint4 pack8(const float* v) {
-  uint32_t words[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    words[i] = *reinterpret_cast<const uint32_t*>(&b2);
-  }
-  return make_uint4(words[0], words[1], words[2], words[3]);
+// Unit (16 bytes: 8 channels) of patch row yy (within a step), column x,
+// channel group u (0..3), in a ring stage.
+__device__ __forceinline__ int patch_unit(int yy, int x, int u) {
+  return yy * kRowUnits + ((4 * x + u) ^ yy);
+}
+// Unit of tmp[r][x][8u..8u+7].
+__device__ __forceinline__ int tmp_unit(int r, int x, int u) {
+  return r * kTmpPlane + 4 * x + (u ^ ((x >> 1) & 3));
 }
 
-// PM: rows of the interpolation matrix a thread holds, a multiple of 4 and
-// at least p (8 for p <= 8, 16 for p <= 16).
-template <int PM>
-__global__ void __launch_bounds__(kThreads)
+// NT: n-tiles of 8 columns of a^T, 1 for p <= 8, 2 for p <= 16; at NT = 1
+// two blocks fit an SM (128 registers a thread).
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 3 - NT)
 diag_pool_kernel(Levels lv, int n_lvl, const float* __restrict__ rois,
                  const int* __restrict__ levels,
                  __nv_bfloat16* __restrict__ out,
                  int W, int C, int p, int variant) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;
-  float* at = reinterpret_cast<float*>(smem + kStages * kRowBytes);
-  __nv_bfloat16* tmp_s = reinterpret_cast<__nv_bfloat16*>(at + kPatch * PM);
+  const uint32_t ring = smem_addr(smem);
 
   const int tiles = C / kTileC;
   const int pair = blockIdx.x / tiles;
   const int tile = blockIdx.x - pair * tiles;
-  const int tid = threadIdx.x;
-  const int col = tid >> 2;               // patch column of this thread
-  const int chunk = tid & 3;              // its 8 channels of the tile
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;                // fragment row group
+  const int q = lane & 3;                 // fragment column pair
 
   // int(x1) truncates toward zero and saturates (NaN -> 0), as XLA's
   // f32 -> s32 convert does; >> 3 floors, as the TPU kernel's // 8.
@@ -141,127 +185,179 @@ diag_pool_kernel(Levels lv, int n_lvl, const float* __restrict__ rois,
   const int lvl =
       variant == kNoSwitch ? 0 : min(max(levels[pair], 0), n_lvl - 1);
 
-  // a transposed, at[j][r] = bf16(max(0, 1 - |j - x1|)) for r < p (every
-  // row of a is the same), 0 for p <= r < PM.
-  for (int i = tid; i < kPatch * PM; i += kThreads) {
-    const int j = i / PM;
-    const float v = fmaxf(0.0f, 1.0f - fabsf(static_cast<float>(j) - x1));
-    at[i] = i - j * PM < p ? __bfloat162float(__float2bfloat16_rn(v)) : 0.0f;
-  }
-
+  // The gather: lane copies (column 8w + lane/4, channels 8 (lane & 3) ..
+  // +7 of the tile) of each of a step's 8 rows: 64 contiguous bytes of a
+  // map cell per 4 lanes.
+  const int gx = 8 * warp + (lane >> 2);
+  const int gu = lane & 3;
   const size_t row_stride = static_cast<size_t>(W) * C;
-  const __nv_bfloat16* src = lv.ptr[lvl] +
-                             static_cast<size_t>(ox + col) * C +
-                             tile * kTileC + chunk * 8;
-  const uint32_t slot0 = smem_addr(ring) + 16 * tid;
-  unsigned char* mine = ring + 16 * tid;
+  const __nv_bfloat16* src = lv.ptr[lvl] + static_cast<size_t>(ox + gx) * C +
+                             tile * kTileC + 8 * gu;
   const bool gather = variant != kNoDma;
+  auto issue = [&](int step, int slot) {
+#pragma unroll
+    for (int yy = 0; yy < kStepRows; ++yy)
+      cp_async16(ring + slot * kStageBytes + 16 * patch_unit(yy, gx, gu),
+                 src + (step * kStepRows + yy) * row_stride);
+  };
   if (gather) {
 #pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      cp_async16(slot0 + s * kRowBytes, src + s * row_stride);
+    for (int s = 0; s < kRing; ++s) {
+      issue(s, s);
       cp_async_commit();
     }
   } else {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s)
-      *reinterpret_cast<uint4*>(mine + s * kRowBytes) = make_uint4(0, 0, 0, 0);
+    for (int yy = 0; yy < kStepRows; ++yy)
+      *reinterpret_cast<uint4*>(smem + 16 * patch_unit(yy, gx, gu)) =
+          make_uint4(0, 0, 0, 0);
+    __syncwarp();
   }
-  __syncthreads();                        // at[] is read by every thread
 
-  const size_t out_c = static_cast<size_t>(tile) * kTileC + chunk * 8;
-  float acc[PM][8];
+  // B = a^T (64 x p, columns past p zero), per K step and n-tile: the same
+  // fragments serve both contractions.
+  uint32_t bf[kSteps][NT];
 #pragma unroll
-  for (int r = 0; r < PM; ++r)
+  for (int s = 0; s < kSteps; ++s)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[r][k] = 0.0f;
+    for (int nt = 0; nt < NT; ++nt)
+      bf[s][nt] = 8 * nt + g < p ? interp_pair(kStepRows * s + 2 * q, x1)
+                                 : 0u;
 
-  for (int y = 0; y < kPatch; ++y) {
+  // ldmatrix.trans lane roles: lane provides row lane & 7 of matrix
+  // lane >> 3, the channel group; m-tile 0 is groups 0, 1, m-tile 1 is
+  // groups 2, 3.
+  const int lr = lane & 7;
+  const int lu = lane >> 3;
+
+  float acc[8][2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][mt][nt][e] = 0.0f;
+
+  const float xb = __bfloat162float(__float2bfloat16_rn(x1));
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int slot = gather ? s % kRing : 0;
     if (gather) {
-      const int next = y + kStages - 1;
-      if (next < kPatch)
-        cp_async16(slot0 + (next % kStages) * kRowBytes,
-                   src + next * row_stride);
-      cp_async_commit();
-      cp_async_wait<kStages - 1>();       // this thread's row y has landed
+      cp_async_wait<kRing - 1>();         // this warp's step s has landed
+      __syncwarp();
     }
-    float v[8];
-    unpack8(*reinterpret_cast<const uint4*>(mine + (y % kStages) * kRowBytes),
-            v);
     if (variant == kNoDot) {
-      if (y < p && col < p) {
-        const float xb = __bfloat162float(__float2bfloat16_rn(x1));
-        float o[8];
+      if (gx < p) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) o[k] = v[k] + xb;
-        *reinterpret_cast<uint4*>(
-            out + ((static_cast<size_t>(pair) * p + y) * p + col) * C +
-            out_c) = pack8(o);
+        for (int yy = 0; yy < kStepRows; ++yy) {
+          const int y = s * kStepRows + yy;
+          if (y < p)
+            *reinterpret_cast<uint4*>(
+                out + ((static_cast<size_t>(pair) * p + y) * p + gx) * C +
+                tile * kTileC + 8 * gu) =
+                add8(*reinterpret_cast<const uint4*>(
+                         smem + slot * kStageBytes +
+                         16 * patch_unit(yy, gx, gu)),
+                     xb);
+        }
       }
-      continue;
-    }
-    const float4* arow = reinterpret_cast<const float4*>(at + y * PM);
+    } else {
+      const uint32_t stage = ring + slot * kStageBytes;
 #pragma unroll
-    for (int r4 = 0; r4 < PM / 4; ++r4) {
-      const float4 a4 = arow[r4];
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      for (int i = 0; i < 8; ++i) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(stage + 16 * patch_unit(lr, 8 * warp + i, lu), a);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (4 * r4 + i < p) {
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            acc[4 * r4 + i][k] = fmaf(a[i], v[k], acc[4 * r4 + i][k]);
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_k8(acc[i][0][nt], a[0], a[1], bf[s][nt]);
+          mma_k8(acc[i][1][nt], a[2], a[3], bf[s][nt]);
         }
       }
     }
+    if (gather) {
+      __syncwarp();                       // every lane is done with the slot
+      if (s + kRing < kSteps) issue(s + kRing, slot);
+      cp_async_commit();
+    }
   }
-  if (gather) cp_async_wait<0>();
   if (variant == kNoDot) return;
+  __syncthreads();                        // the ring is free: stage tmp
 
-  // tmp[r][col][8 channels] rounded to bf16 into shared memory.
+  // tmp[r][x][c] = bf16(acc): x = 8w + i, c = 16mt + g (+8), r = 8nt + 2q
+  // (+1).
+  unsigned char* tmp_s = smem;
 #pragma unroll
-  for (int r = 0; r < PM; ++r)
-    if (r < p)
-      *reinterpret_cast<uint4*>(tmp_s + (r * kPatch + col) * kTileC +
-                                chunk * 8) = pack8(acc[r]);
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * nt + 2 * q + (e & 1);
+          if (r < p)
+            *reinterpret_cast<__nv_bfloat16*>(
+                tmp_s + 16 * tmp_unit(r, 8 * warp + i, 2 * mt + (e >> 1)) +
+                2 * g) = __float2bfloat16_rn(acc[i][mt][nt][e]);
+        }
   __syncthreads();
 
-  // out[r][q][c] = sum_x a[q][x] * tmp[r][x][c], one thread per (r, q, 8c).
-  for (int u = tid; u < p * p * 4; u += kThreads) {
-    const int ch = u & 3;
-    const int rq = u >> 2;
-    const int r = rq / p;
-    const int q = rq - r * p;
-    const __nv_bfloat16* trow = tmp_s + r * kPatch * kTileC + ch * 8;
-    float o[8];
+  // out^T[(r, c), q] = sum_x tmp[r][x][c] * a[q][x]; warp w takes r = w,
+  // w + 8; the (p, p, 32) tile is staged after the tmp planes.
+  unsigned char* out_s = smem + 16 * kTmpPlane * p;
+  const uint32_t tmp_a = smem_addr(tmp_s);
+  for (int r = warp; r < p; r += kWarps) {
+    float d[2][NT][4];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = 0.0f;
-#pragma unroll 8
-    for (int x = 0; x < kPatch; ++x) {
-      const float w = at[x * PM + q];
-      float t[8];
-      unpack8(*reinterpret_cast<const uint4*>(trow + x * kTileC), t);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] = fmaf(w, t[k], o[k]);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[mt][nt][e] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(tmp_a + 16 * tmp_unit(r, kStepRows * s + lr, lu), a);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_k8(d[0][nt], a[0], a[1], bf[s][nt]);
+        mma_k8(d[1][nt], a[2], a[3], bf[s][nt]);
+      }
     }
-    *reinterpret_cast<uint4*>(
-        out + ((static_cast<size_t>(pair) * p + r) * p + q) * C +
-        static_cast<size_t>(tile) * kTileC + ch * 8) = pack8(o);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qq = 8 * nt + 2 * q + (e & 1);
+          if (qq < p)
+            *reinterpret_cast<__nv_bfloat16*>(
+                out_s + 64 * (r * p + qq) + 2 * (16 * mt + g + 8 * (e >> 1))) =
+                __float2bfloat16_rn(d[mt][nt][e]);
+        }
   }
+  __syncthreads();
+  for (int u = threadIdx.x; u < 4 * p * p; u += kThreads)
+    *reinterpret_cast<uint4*>(
+        out + (static_cast<size_t>(pair) * p * p + (u >> 2)) * C +
+        tile * kTileC + 8 * (u & 3)) =
+        *reinterpret_cast<const uint4*>(out_s + 16 * u);
 }
 
-template <int PM>
+template <int NT>
 int launch(const Levels& lv, int n_lvl, const float* rois, const int* levels,
            __nv_bfloat16* out, int n, int W, int C, int p, int variant,
            cudaStream_t st) {
-  const size_t smem = smem_bytes<PM>(p);
   cudaError_t err = cudaFuncSetAttribute(
-      diag_pool_kernel<PM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      diag_pool_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>(n) * (C / kTileC);
-  diag_pool_kernel<PM><<<grid, kThreads, smem, st>>>(lv, n_lvl, rois, levels,
-                                                     out, W, C, p, variant);
+  diag_pool_kernel<NT><<<grid, kThreads, kSmemBytes, st>>>(
+      lv, n_lvl, rois, levels, out, W, C, p, variant);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,8 +394,8 @@ int dat_diag_pool(const void* level_ptrs, int n_lvl, const void* rois,
   const float* r = static_cast<const float*>(rois);
   const int* l = static_cast<const int*>(levels);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  return p <= 8 ? launch<8>(lv, n_lvl, r, l, o, n, W, C, p, variant, st)
-                : launch<16>(lv, n_lvl, r, l, o, n, W, C, p, variant, st);
+  return p <= 8 ? launch<1>(lv, n_lvl, r, l, o, n, W, C, p, variant, st)
+                : launch<2>(lv, n_lvl, r, l, o, n, W, C, p, variant, st);
 }
 
 }  // extern "C"

@@ -2,16 +2,19 @@
 
 Port of detectandtrack_tpu/kernels/conv1.py: `conv1` runs the plain
 PyTorch version, `conv1_reference`, for a CPU tensor; for a CUDA tensor it
-dispatches by dtype to one of the two kernels in `csrc/conv1.cu`, or
-raises: bf16 to the tensor-core implicit GEMM (`conv1_tc`, whose weight
-layout `conv1_tc_weights` prepares), f32 to the CUDA-core direct
-convolution (`conv1_cuda_core`; TF32 tensor cores would miss the f32
-parity bound). `conv1_autograd` adds the gradient to x and the weights,
-taken from the plain conv's autograd (cuDNN on the card), as the JAX
-package's `_conv1_bwd` takes the vjp of `_conv1_reference`.
+dispatches by dtype to one of the two tensor-core implicit GEMMs in
+`csrc/conv1.cu`, or raises: bf16 to `conv1_tc` (weights laid out by
+`conv1_tc_weights`), f32 to `conv1_tf32` (weights laid out by
+`conv1_tf32_weights`), which splits every f32 operand into two TF32 parts,
+big = tf32(v) and small = tf32(v - big), and sums small*big + big*small +
+big*big in f32: about 2^-22 of a product off, where one TF32 pass is off
+by 2^-11 and would miss the 1e-4 f32 parity bound. `conv1_autograd` adds
+the gradient to x and the weights, taken from the plain conv's autograd
+(cuDNN on the card), as the JAX package's `_conv1_bwd` takes the vjp of
+`_conv1_reference`.
 
 Launch counts: `conv1.launches` (either kernel), `conv1.launches_tc` and
-`conv1.launches_cc` (each kernel's own).
+`conv1.launches_f32` (each kernel's own).
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ import torch.nn.functional as F
 from . import _build
 
 _SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def conv1_reference(x: torch.Tensor, k7: torch.Tensor, t: int,
@@ -55,19 +57,32 @@ def conv1_tc_weights(k7: torch.Tensor) -> torch.Tensor:
     return w.reshape(t * 7 * TC_SLOTS, 64).t().contiguous()
 
 
+TF32_SLOTS = 24   # K slots per (kt, ky) group of the f32 kernel
+
+
+def conv1_tf32_weights(k7: torch.Tensor) -> torch.Tensor:
+    """k7 (t, 7, 7, 3, 64) → the f32 kernel's (64, 24·7·t) weight matrix,
+    K contiguous, in k7's dtype. K runs over (kt, ky, slot): slot s of a
+    (kt, ky) group holds (kx, ci) = divmod(s, 3) for s < 21; slots 21..23
+    are zero (the kernel never loads their input values)."""
+    t = k7.shape[0]
+    w = F.pad(k7.reshape(t, 7, 21, 64), (0, 0, 0, TF32_SLOTS - 21))
+    return w.reshape(t * 7 * TF32_SLOTS, 64).t().contiguous()
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("conv1")
-    lib.dat_conv1.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                              + [ctypes.c_void_p])
-    lib.dat_conv1.restype = ctypes.c_int
-    lib.dat_conv1_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.dat_conv1_smem_bytes.restype = ctypes.c_longlong
     lib.dat_conv1_tc.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                                  + [ctypes.c_void_p])
     lib.dat_conv1_tc.restype = ctypes.c_int
     lib.dat_conv1_tc_smem_bytes.argtypes = [ctypes.c_int]
     lib.dat_conv1_tc_smem_bytes.restype = ctypes.c_longlong
+    lib.dat_conv1_tf32.argtypes = ([ctypes.c_void_p] * 3
+                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.dat_conv1_tf32.restype = ctypes.c_int
+    lib.dat_conv1_tf32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dat_conv1_tf32_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -90,30 +105,29 @@ def _out(x: torch.Tensor, w: int, dtype: torch.dtype) -> torch.Tensor:
                        device=x.device)
 
 
-def conv1_cuda_core(x: torch.Tensor, k7: torch.Tensor, t: int,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """The CUDA-core kernel (f32 FMAs; `dtype` f32 or bf16) on CUDA
-    tensors: `conv1`'s f32 route."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"conv1 kernel: dtype {dtype} (f32 or bf16 only)")
+def conv1_tf32(x: torch.Tensor, k7: torch.Tensor, t: int) -> torch.Tensor:
+    """The f32 3-pass TF32 kernel on CUDA tensors: `conv1`'s f32 route. A
+    clip width that is not a multiple of 4 gets zero columns on the right
+    (exact: the conv pads with zeros there)."""
     _check_args(x, k7, t)
-    x = x.to(dtype).contiguous()
-    k7 = k7.to(dtype).contiguous()
-    if k7.data_ptr() % 16:
-        raise ValueError("conv1 kernel: weights must be 16-byte aligned")
     lib = _lib()
-    if lib.dat_conv1_smem_bytes(t, _DTYPES[dtype]) > _SMEM_LIMIT:
-        raise ValueError(f"conv1 kernel: t={t} weights do not fit shared "
-                         f"memory in {dtype}")
+    if lib.dat_conv1_tf32_smem_bytes(t) > _SMEM_LIMIT:
+        raise ValueError(f"conv1 f32 kernel: t={t} weights do not fit "
+                         "shared memory")
     b, nt, h, w, _ = x.shape
-    out = _out(x, w, dtype)
+    x = x.to(torch.float32)
+    if w % 4:
+        x = F.pad(x, (0, 0, 0, 4 - w % 4))
+    x = x.contiguous()
+    wk = conv1_tf32_weights(k7.to(torch.float32))
+    out = _out(x, w, torch.float32)
     with torch.cuda.device(x.device):
-        err = lib.dat_conv1(x.data_ptr(), k7.data_ptr(), out.data_ptr(), b,
-                            nt, h, w, t, _DTYPES[dtype],
-                            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "conv1 kernel launch")
+        err = lib.dat_conv1_tf32(x.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                                 b, nt, h, x.shape[3], (w + 1) // 2, t,
+                                 torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "conv1 f32 kernel launch")
     conv1.launches += 1
-    conv1.launches_cc += 1
+    conv1.launches_f32 += 1
     return out
 
 
@@ -148,21 +162,22 @@ def conv1(x: torch.Tensor, k7: torch.Tensor, t: int,
     """conv1 of the inflated ResNet → (B, T, ceil(H/2), ceil(W/2), 64).
 
     A CPU tensor runs `conv1_reference`. A CUDA tensor launches a kernel by
-    `dtype` (x and k7 are cast to it; f32 accumulation): bf16 the
-    tensor-core kernel, f32 the CUDA-core kernel; any other dtype raises.
+    `dtype` (x and k7 are cast to it; f32 accumulation), both on the
+    tensor cores: bf16 `conv1_tc`, f32 the 3-pass TF32 `conv1_tf32`; any
+    other dtype raises.
     """
     if not x.is_cuda:
         return conv1_reference(x, k7, t, dtype)
     if dtype == torch.bfloat16:
         return conv1_tc(x, k7, t)
     if dtype == torch.float32:
-        return conv1_cuda_core(x, k7, t, dtype)
+        return conv1_tf32(x, k7, t)
     raise TypeError(f"conv1 kernel: dtype {dtype} (f32 or bf16 only)")
 
 
 conv1.launches = 0
 conv1.launches_tc = 0
-conv1.launches_cc = 0
+conv1.launches_f32 = 0
 
 
 def conv1_backward(x: torch.Tensor, k7: torch.Tensor, t: int,

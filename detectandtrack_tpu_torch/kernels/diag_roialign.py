@@ -16,9 +16,10 @@ and the contractions, in four variants:
 For pair i: x1 = rois[4i], ox = clip((int(x1) // 8) * 8, 0, 64), the patch
 is feats[L][0, 0:64, ox:ox+64, :] with L = clip(levels[i], 0, n_levels-1),
 and a[r, j] = bf16(max(0, 1 - |j - x1|)) for r < p, j < 64 (x1 itself, not
-relative to ox). `diag_pool` launches `csrc/diag_roialign.cu` for CUDA
-tensors, runs the plain version `diag_pool_reference` for CPU tensors, and
-raises on any other device. Launch counts: `diag_pool.launches[variant]`.
+relative to ox). `diag_pool` launches `csrc/diag_roialign.cu` (both
+contractions on the bf16 tensor cores, f32 sums) for CUDA tensors, runs
+the plain version `diag_pool_reference` for CPU tensors, and raises on any
+other device. Launch counts: `diag_pool.launches[variant]`.
 """
 
 from __future__ import annotations

@@ -51,7 +51,7 @@ def _counters(tree_pkg) -> dict:
 
 def _reset(tree_pkg) -> None:
     conv1 = tree_pkg["conv1"].conv1
-    for name in ("launches", "launches_tc", "launches_cc"):
+    for name in ("launches", "launches_tc", "launches_cc", "launches_f32"):
         if hasattr(conv1, name):
             setattr(conv1, name, 0)
     tree_pkg["roi_align"].roi_align_multilevel.launches = 0

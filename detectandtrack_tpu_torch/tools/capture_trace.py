@@ -110,7 +110,7 @@ def stage_scopes(model):
 def hand_kernel_work(work: Dict[str, roofline.Work]):
     """Add the work (utils/roofline) of each hand-kernel call the model
     makes to `work`, keyed by the CUDA kernel's name: conv1 (bf16: the
-    tensor-core kernel, f32: the CUDA-core kernel) and K1. It wraps the
+    tensor-core kernel, f32: the 3-pass TF32 kernel) and K1. It wraps the
     autograd entry points the backbone and the detector call."""
     saved = [(backbone_mod, "conv1_autograd", backbone_mod.conv1_autograd),
              (det_mod, "roi_align_multilevel_autograd",
@@ -120,7 +120,8 @@ def hand_kernel_work(work: Dict[str, roofline.Work]):
         work[key] = work[key] + w if key in work else w
 
     def conv1_autograd(x, k7, t, dtype):
-        add("conv1_tc_kernel" if dtype == torch.bfloat16 else "conv1_kernel",
+        add("conv1_tc_kernel" if dtype == torch.bfloat16
+            else "conv1_tf32_kernel",
             roofline.conv1_work(x.shape, t, dtype))
         return saved[0][2](x, k7, t, dtype)
 

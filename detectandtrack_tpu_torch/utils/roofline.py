@@ -27,12 +27,18 @@ class Peaks:
     bf16_flops: float         # dense bf16 tensor-core FLOP/s
     f32_flops: float          # f32 FLOP/s on the CUDA cores
     bytes_per_s: float        # device memory bandwidth
+    tf32_flops: float         # dense TF32 tensor-core FLOP/s
 
     def flops(self, kind: str) -> float:
-        return self.bf16_flops if kind == "bf16" else self.f32_flops
+        """The peak FLOP/s of one operation kind (see `Work`)."""
+        rates = {"bf16": self.bf16_flops, "tf32": self.tf32_flops,
+                 "f32": self.f32_flops}
+        if kind not in rates:
+            raise ValueError(f"unknown operation kind {kind!r}")
+        return rates[kind]
 
 
-H100_SXM = Peaks("H100 SXM", 989e12, 67e12, 3.35e12)
+H100_SXM = Peaks("H100 SXM", 989e12, 67e12, 3.35e12, 495e12)
 
 
 def peaks_for(device_name: str) -> Peaks:
@@ -48,7 +54,8 @@ def peaks_for(device_name: str) -> Peaks:
 @dataclass(frozen=True)
 class Work:
     """What one call must do: bytes moved and operations of one kind
-    ("bf16": tensor-core eligible bf16 products, "f32": CUDA-core f32)."""
+    ("bf16": tensor-core eligible bf16 products, "tf32": TF32 tensor-core
+    products, "f32": CUDA-core f32)."""
     n_bytes: float
     flops: float
     kind: str = "f32"
@@ -72,16 +79,23 @@ def _size(dtype) -> int:
     return 2 if str(dtype).endswith("bfloat16") else 4
 
 
-def conv1_work(shape: Sequence[int], t: int, dtype) -> Work:
+def conv1_work(shape: Sequence[int], t: int, dtype,
+               peaks: Peaks = H100_SXM) -> Work:
     """conv1 on a (B, T, H, W, 3) clip: x and k7 read once, the output
-    written once; 2 FLOP per multiply-add, on the tensor cores in bf16, the
-    CUDA cores in f32."""
+    written once; 2 FLOP per multiply-add. bf16 runs on the tensor cores.
+    f32 takes the smaller of two operation bounds on `peaks`: three TF32
+    products per multiply-add (the 3-pass split big*big + big*small +
+    small*big that keeps f32 accuracy) or one f32 FMA on the CUDA cores
+    (on an H100 3 / 495 TFLOP/s is below 1 / 67: TF32)."""
     b, nt, h, w, _ = shape
     size = _size(dtype)
     outs = b * nt * ((h + 1) // 2) * ((w + 1) // 2) * 64
     n_bytes = (b * nt * h * w * 3 + t * 49 * 3 * 64 + outs) * size
-    return Work(n_bytes, 2 * outs * t * 49 * 3,
-                "bf16" if size == 2 else "f32")
+    flops = 2 * outs * t * 49 * 3
+    if size == 2:
+        return Work(n_bytes, flops, "bf16")
+    return min(Work(n_bytes, 3 * flops, "tf32"), Work(n_bytes, flops, "f32"),
+               key=lambda w: w.flops / peaks.flops(w.kind))
 
 
 def roi_align_work(shapes: Sequence[Sequence[int]], strides: Sequence[int],

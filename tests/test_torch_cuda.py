@@ -14,8 +14,8 @@ import torch
 from detectandtrack_tpu_torch.kernels import diag_roialign as dr
 from detectandtrack_tpu_torch.kernels import roi_align as ra
 from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_autograd,
-                                                    conv1_cuda_core,
-                                                    conv1_reference, conv1_tc)
+                                                    conv1_reference, conv1_tc,
+                                                    conv1_tf32)
 from detectandtrack_tpu_torch.kernels.roi_align import (
     roi_align_multilevel, roi_align_multilevel_reference)
 
@@ -40,15 +40,16 @@ def _tol(ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,shape", [(3, (2, 4, 32, 48, 3)),
                                      (1, (1, 2, 37, 41, 3)),
-                                     (3, (1, 3, 65, 9, 3))])
+                                     (3, (1, 3, 65, 9, 3)),
+                                     (3, (1, 2, 19, 1, 3))])
 def test_conv1_kernel_matches_plain(cuda, dtype, t, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen)
     k7 = torch.randn((t, 7, 7, 3, 64), device=cuda, generator=gen) * 0.05
-    before = (conv1.launches, conv1.launches_tc, conv1.launches_cc)
+    before = (conv1.launches, conv1.launches_tc, conv1.launches_f32)
     got = conv1(x, k7, t, dtype)
     tc = dtype == torch.bfloat16
-    assert (conv1.launches, conv1.launches_tc, conv1.launches_cc) == (
+    assert (conv1.launches, conv1.launches_tc, conv1.launches_f32) == (
         before[0] + 1, before[1] + tc, before[2] + (not tc))
     ref = conv1_reference(x, k7, t, dtype)
     torch.cuda.synchronize()
@@ -87,8 +88,7 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, p):
                                      (3, (1, 2, 7, 8, 3))])
 def test_conv1_tc_kernel_matches_plain_at_odd_sizes(cuda, t, shape):
     """The bf16 tensor-core kernel on its own: odd H and W (its W is padded
-    to a multiple of 8), ragged tiles in both directions, t = 1 and 3;
-    and the CUDA-core kernel on the same bf16 input."""
+    to a multiple of 8), ragged tiles in both directions, t = 1 and 3."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
     k7 = (torch.randn((t, 7, 7, 3, 64), device=cuda, generator=gen)
@@ -97,12 +97,78 @@ def test_conv1_tc_kernel_matches_plain_at_odd_sizes(cuda, t, shape):
     before = conv1.launches_tc
     got = conv1_tc(x, k7, t)
     assert conv1.launches_tc == before + 1
-    cc = conv1_cuda_core(x, k7, t, torch.bfloat16)
     torch.cuda.synchronize()
-    for out in (got, cc):
-        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
-        assert (out.float() - ref.float()).abs().max().item() <= _tol(
-            ref, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert (got.float() - ref.float()).abs().max().item() <= _tol(
+        ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,shape", [(3, (1, 2, 33, 35, 3)),
+                                     (1, (2, 3, 17, 19, 3)),
+                                     (3, (1, 4, 130, 140, 3)),
+                                     (1, (1, 1, 1, 1, 3)),
+                                     (3, (1, 2, 7, 8, 3)),
+                                     (3, (1, 2, 37, 1, 3))])
+def test_conv1_tf32_kernel_matches_plain_at_odd_sizes(cuda, t, shape):
+    """The f32 3-pass TF32 kernel on its own: odd H and W (its W is padded
+    to a multiple of 4), width 1, ragged tiles, t = 1 and 3; f32 plain conv
+    with TF32 off, within 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    k7 = torch.randn((t, 7, 7, 3, 64), device=cuda, generator=gen) * 0.05
+    ref = conv1_reference(x, k7, t, torch.float32)
+    before = conv1.launches_f32
+    got = conv1_tf32(x, k7, t)
+    assert conv1.launches_f32 == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_conv1_tf32_kernel_non_finite_masks_equal_plain(cuda, t):
+    """An inf and a NaN planted in the clip (and a -inf at its edge): the
+    kernel's output is non-finite exactly where a direct conv's is, the
+    outputs whose window holds a planted value (the split of +-inf gives
+    NaN where the plain conv may give +-inf); elsewhere it agrees with the
+    plain conv of the clip without them within 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((1, 3, 40, 70, 3), device=cuda, generator=gen)
+    k7 = torch.randn((t, 7, 7, 3, 64), device=cuda, generator=gen) * 0.05
+    ref = conv1_reference(x, k7, t, torch.float32)
+    planted = torch.zeros_like(x)
+    for (f, y, col, c), v in (((1, 10, 20, 0), "inf"), ((2, 31, 45, 2), "nan"),
+                              ((0, 0, 69, 1), "-inf")):
+        x[0, f, y, col, c] = float(v)
+        planted[0, f, y, col, c] = 1.0
+    # A direct conv's non-finite outputs: those whose window reads a
+    # planted value (inf * 0 is NaN too).
+    finite = conv1_reference(planted, torch.ones_like(k7), t,
+                             torch.float32) < 0.5
+    assert not finite.all()
+    got = conv1(x, k7, t, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(got), finite)
+    assert (got[finite] - ref[finite]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("nan_bits", [0x7FC00000, 0x7FFFFFFF, 0xFFFFE001])
+def test_conv1_tf32_kernel_nan_weight_stays_nan(cuda, nan_bits):
+    """A NaN weight, whatever its payload (one whose rounding on the bits
+    would carry into the sign included), makes its channel NaN wherever
+    the plain conv does; the other channels keep within 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((1, 2, 20, 24, 3), device=cuda, generator=gen)
+    k7 = torch.randn((3, 7, 7, 3, 64), device=cuda, generator=gen) * 0.05
+    k7.view(torch.int32)[1, 3, 3, 2, 5] = int(
+        np.array([nan_bits], np.uint32).view(np.int32)[0])
+    ref = conv1_reference(x, k7, 3, torch.float32)
+    got = conv1(x, k7, 3, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    assert not torch.isfinite(got[..., 5]).any()
+    finite = torch.isfinite(ref)
+    assert (got[finite] - ref[finite]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
@@ -418,7 +484,7 @@ def test_box_loss_gradient_reaches_fpn_and_backbone_on_card(cuda):
             assert (gpu[k] - cpu[k]).abs().max().item() <= tol, k
 
 
-@pytest.mark.parametrize("p", [3, 7, 14])
+@pytest.mark.parametrize("p", [3, 7, 14, 16])
 @pytest.mark.parametrize("variant", dr.VARIANTS)
 def test_diag_pool_kernel_matches_plain(cuda, variant, p):
     """The diagnostic kernel on clipped column offsets (x1 past 72 or below

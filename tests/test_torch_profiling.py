@@ -222,7 +222,8 @@ def test_capture_trace_tool_on_cpu(tmp_path):
     assert work["iters"] == 1 and work["device"] == "cpu"
     # The hand kernels' work of one request: conv1 (f32 here) and K1 at
     # the box and keypoint stages.
-    assert {"conv1_kernel", "roi_align_fwd_kernel"} <= set(work["kernels"])
+    assert {"conv1_tf32_kernel", "roi_align_fwd_kernel"} <= set(
+        work["kernels"])
     assert work["kernels"]["roi_align_fwd_kernel"]["source"] == (
         "utils/roofline")
     # The stage scopes come off after the trace.
