@@ -97,23 +97,34 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      keypoints (3D R-18 T=3), RPN-only, and the main config's flip TTA
      (`detect_tta`), and 1 warm-up and 2 training steps each of the mask
      and the C4 configs, each path with the checks of 7 and 8;
+  9b. [surface-ops] the ops the port took last from the JAX package
+     (flip_boxes, bbox_iou_pairwise, flip_heatmaps, batched_nms_fixed,
+     soft_nms_scan, heatmaps_to_keypoints_numpy) on CUDA against the CPU;
+     soft_nms_fixed against the sequential soft_nms_scan on CUDA on the
+     CPU test's soft-NMS cases; then tools/parity_check.py end to end on
+     the card: [finetune]'s .pkl imported into the main config, [dataset]'s
+     720x1280 set streamed and scored, the tool's detections rewritten in
+     Detectron's form and diffed by a second run (the same detections and
+     metrics, keypoint delta 0, IoU 1 on every box with a +1-convention
+     area); launch counters = windows per run;
  10. parity: small f32 models on the card against the port's CPU path on
      the same weights and inputs: inference of the golden R-18 T=2 model
      and of every new branch (R-18 bodies, 64x96), then one training step
      each of the golden model and of the mask, C4, center-frame and
      RPN-only branches (losses and every gradient).
 Then it prints the kernels' JSON line (launches summed over the
-full-width paths, the [dataset], [finetune] and [multigpu] runs among
-them, the torchrun children's counts included; conv1's f32 kernel
-counted over the parity phases, K3 on its own path, the RoIAlign
-backward's prep kernel beside its gather, the diagnostic kernel per
-variant at p=7 with its tool's launches; each with its time, its plain
-version's, its bound and the one PyTorch call that computes the same
-function, where there is one),
+full-width paths, the [dataset], [finetune], [multigpu] and
+[surface-ops] runs among them, the torchrun children's counts included;
+conv1's f32 kernel counted over the parity phases, K3 on its own path,
+the RoIAlign backward's prep kernel beside its gather, the diagnostic
+kernel per variant at p=7 with its tool's launches; each with its time,
+its plain version's, its bound and the one PyTorch call that computes
+the same function, where there is one),
 the nvidia-smi card line and, last, {"ok": true, "device": {...}}. It exits
 nonzero without a CUDA device.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -1173,6 +1184,220 @@ def phase_surface(torch):
     return total
 
 
+SOFT_NMS_BUDGETS = (8, 52)   # the CPU test's budgets; 52 > N pads
+
+
+def phase_surface_ops(torch):
+    """The ops the port took last from the JAX package, on the card: each
+    on CUDA tensors against the same op on the CPU (flips, indices and
+    masks equal, IoU and scores 1e-6; the copied numpy heatmap decode
+    against the CUDA decode at 1e-4 + 1e-6 of |value|: image coordinates
+    reach 1500 px, where an f32 ulp is 1.2e-4); soft_nms_fixed against the
+    sequential soft_nms_scan on CUDA on the CPU test's soft-NMS cases (3
+    lanes of 40 boxes, both methods, both budgets); then the parity tool
+    end to end: [finetune]'s 2D R-50 FPN .pkl imported into the main
+    config and [dataset]'s 720x1280 set streamed, once diffing against an
+    empty Detectron file (which writes the tool's detections), then
+    against those detections rewritten in Detectron's form: the same
+    detections and metrics, keypoint delta 0, best IoU 1 on every box the
+    diff's +1 convention gives an area → the launches of the two tool
+    runs."""
+    import io
+    import pickle
+    import shutil
+
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.data.posetrack import get_dataset
+    from detectandtrack_tpu_torch.ops import boxes as tboxes
+    from detectandtrack_tpu_torch.ops import keypoints as tkps
+    from detectandtrack_tpu_torch.ops import nms as tnms
+    from detectandtrack_tpu_torch.tools import parity_check
+    from detectandtrack_tpu_torch.utils.env import card_line
+    from detectandtrack_tpu_torch.utils.synthetic import (SOFT_NMS_CASES,
+                                                          soft_nms_case)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+
+    def same(tag, got, want, tol=0.0, rtol=0.0):
+        diff = (got.cpu().double() - want.double()).abs()
+        err = diff.max().item() if got.numel() else 0.0
+        if got.shape != want.shape or got.dtype != want.dtype or not bool(
+                (diff <= tol + rtol * want.double().abs()).all()):
+            raise RuntimeError(f"[surface-ops] {tag}: CUDA vs CPU "
+                               f"{tuple(got.shape)} {got.dtype} vs "
+                               f"{tuple(want.shape)} {want.dtype}, "
+                               f"max_abs_err {err} (tol {tol} + {rtol} of "
+                               "|CPU|)")
+        return err
+
+    rng = np.random.default_rng(21)
+    xy = rng.uniform(0, 1200, (3, 300, 2))
+    wh = rng.uniform(4, 300, (3, 300, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32))
+    other = boxes + torch.from_numpy(rng.normal(0, 8, boxes.shape).astype(
+        np.float32))
+    scores = torch.from_numpy(rng.uniform(0, 1, (3, 300)).astype(np.float32))
+    classes = torch.from_numpy(rng.integers(0, 3, (3, 300)))
+    valid = torch.from_numpy(rng.uniform(size=(3, 300)) > 0.2)
+    heat = torch.from_numpy(rng.normal(size=(20, 15, 56, 56)).astype(
+        np.float32))
+    rois = boxes[0, :20]
+    dev = [x.cuda() for x in (boxes, other, scores, classes, valid, heat,
+                              rois)]
+    errs = {"flip_boxes": same("flip_boxes", tboxes.flip_boxes(dev[0], 1280),
+                               tboxes.flip_boxes(boxes, 1280)),
+            "bbox_iou_pairwise": same(
+                "bbox_iou_pairwise", tboxes.bbox_iou_pairwise(dev[0], dev[1]),
+                tboxes.bbox_iou_pairwise(boxes, other), 1e-6),
+            "flip_heatmaps": same("flip_heatmaps",
+                                  tkps.flip_heatmaps(dev[5]),
+                                  tkps.flip_heatmaps(heat))}
+    for name, got, want in (
+            ("batched_nms_fixed",
+             tnms.batched_nms_fixed(dev[0], dev[2], dev[3], 0.5, 100, dev[4]),
+             tnms.batched_nms_fixed(boxes, scores, classes, 0.5, 100, valid)),
+            ("soft_nms_scan",
+             tnms.soft_nms_scan(dev[0], dev[2], 100, method="gaussian",
+                                valid=dev[4]),
+             tnms.soft_nms_scan(boxes, scores, 100, method="gaussian",
+                                valid=valid))):
+        for part, g, w in zip(("indices", "masks", "scores"), got, want):
+            errs[f"{name} {part}"] = same(f"{name} {part}", g, w,
+                                          1e-6 if part == "scores" else 0.0)
+    errs["heatmaps_to_keypoints_numpy"] = same(
+        "heatmaps_to_keypoints_numpy vs the CUDA decode",
+        tkps.heatmaps_to_keypoints(dev[5], dev[6]),
+        torch.from_numpy(tkps.heatmaps_to_keypoints_numpy(heat.numpy(),
+                                                          rois.numpy())),
+        1e-4, 1e-6)
+    print(f"[surface-ops] new ops on CUDA vs the CPU (3 lanes of 300 boxes, "
+          f"20x15x56x56 heatmaps; flips, indices and masks equal, IoU and "
+          f"scores 1e-6, the numpy decode 1e-4 + 1e-6 of |x|): max_abs_err "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }", flush=True)
+
+    worst, n_cases = 0.0, 0
+    for case in SOFT_NMS_CASES:
+        case_rng = np.random.default_rng(11)
+        lanes = [soft_nms_case(case, case_rng) for _ in range(3)]
+        b, sc, v = (torch.from_numpy(np.stack([l[i] for l in lanes])).cuda()
+                    for i in range(3))
+        for method in ("linear", "gaussian"):
+            for max_out in SOFT_NMS_BUDGETS:
+                kw = dict(sigma=0.5, iou_thresh=0.3, score_thresh=0.05,
+                          method=method, valid=v)
+                fixed = tnms.soft_nms_fixed(b, sc, max_out, **kw)
+                scan = tnms.soft_nms_scan(b, sc, max_out, **kw)
+                tag = f"soft_nms_fixed vs soft_nms_scan {case} {method} " \
+                      f"{max_out}"
+                if not (torch.equal(fixed[0], scan[0])
+                        and torch.equal(fixed[1], scan[1])):
+                    raise RuntimeError(f"[surface-ops] {tag}: indices or "
+                                       f"masks differ: {fixed[:2]} vs "
+                                       f"{scan[:2]}")
+                err = (fixed[2] - scan[2]).abs().max().item()
+                if not err <= 1e-6:
+                    raise RuntimeError(f"[surface-ops] {tag}: scores "
+                                       f"max_abs_err {err} > 1e-6")
+                worst, n_cases = max(worst, err), n_cases + 1
+    print(f"[surface-ops] soft_nms_fixed equals soft_nms_scan on CUDA in "
+          f"{n_cases} cases ({', '.join(SOFT_NMS_CASES)}; linear and "
+          f"gaussian; budgets {SOFT_NMS_BUDGETS}; 3 lanes of 40 boxes): "
+          f"indices and masks equal, scores max_abs_err {worst:.3g} "
+          f"(tol 1e-6)", flush=True)
+
+    # The parity tool, end to end on the card.
+    shutil.rmtree(PARITY_DIR, ignore_errors=True)
+    os.makedirs(PARITY_DIR)
+    hard = os.path.join(DATASET_DIR, "data", "synthetic_hard")
+    ds = get_dataset("posetrack_synthetic_hard_val",
+                     os.path.join(DATASET_DIR, "data"))
+    t = load_cfg(os.path.join(REPO, BOX_CFG)).VIDEO.NUM_FRAMES
+    n_win = sum(_windows(len(ds.video_frames(vid)), t) for vid in ds.videos())
+    n_frames = sum(len(ds.video_frames(vid)) for vid in ds.videos())
+    want = {"conv1": n_win, "conv1_f32": 0, "roi_align": 2 * n_win,
+            "roi_align_backward": 0, "roi_align_backward_prep": 0}
+    empty = os.path.join(PARITY_DIR, "empty_detections.pkl")
+    with open(empty, "wb") as f:
+        pickle.dump({"all_boxes": [[], []], "all_keyps": [[], []]}, f)
+    ref = os.path.join(PARITY_DIR, "detections.pkl")
+    argv = ["--pkl", FINETUNE_PKL, "--ann", os.path.join(hard, "val.json"),
+            "--frames", hard, "--cfg", os.path.join(REPO, BOX_CFG),
+            "--out", os.path.join(PARITY_DIR, "run"), "--device", "cuda"]
+    total, printed, walls, dets = {}, [], [], []
+    # With cuDNN's default engines two runs' keypoints came apart by
+    # rounding on an H100; its deterministic engines make them equal.
+    with _cudnn_deterministic(torch):
+        for ref_dets in (empty, ref):
+            torch.cuda.synchronize()
+            _reset_counters()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = parity_check.main(argv + ["--ref-dets", ref_dets])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = _read_counters()
+            if launches != want or rc not in (0, 1):
+                raise RuntimeError(f"[surface-ops] parity_check: rc {rc}, "
+                                   f"launch counters {launches}, expected "
+                                   f"{want}")
+            _add(total, launches)
+            printed.append(parity_check.printed_reports(out.getvalue()))
+            with open(os.path.join(PARITY_DIR, "run", "our_dets.pkl"),
+                      "rb") as f:
+                dets.append(pickle.load(f))
+            if ref_dets == empty:
+                detectron = parity_check.to_detectron_detections(dets[0])
+                with open(ref, "wb") as f:
+                    pickle.dump(detectron, f)
+    (metrics, _), (metrics2, diff) = printed
+    bad = [k for k in ("mAP", "MOTA") if not np.isfinite(metrics[k])]
+    changed = [(vid, i, key) for vid in dets[0]
+               for i, (a, b) in enumerate(zip(dets[0][vid], dets[1][vid]))
+               for key in a if not np.array_equal(a[key], b[key])]
+    # The diff scores a box against itself at IoU 1 only where its +1
+    # convention gives it an area of at least 1e-9 px² (the diff's floor);
+    # random weights may emit boxes without one.
+    ref_boxes = np.concatenate(detectron["all_boxes"][1])
+    w, h = (ref_boxes[:, 2] - ref_boxes[:, 0] + 1,
+            ref_boxes[:, 3] - ref_boxes[:, 1] + 1)
+    proper = (w > 0) & (h > 0) & (w * h >= 1e-9)
+    want_diff = {"ref_images_compared": n_frames,
+                 "mean_best_iou": round(float(proper.mean()), 4),
+                 "mean_kp_px_delta": 0.0}
+    if bad or changed or metrics2 != metrics or diff != want_diff:
+        raise RuntimeError(f"[surface-ops] parity_check: metrics {metrics} "
+                           f"then {metrics2}, detections changed between "
+                           f"the runs at {changed[:5]}, diff {diff} (want "
+                           f"{want_diff})")
+    shutil.rmtree(PARITY_DIR, ignore_errors=True)
+    os.remove(FINETUNE_PKL)
+    print(f"[surface-ops] parity_check on the card: {FINETUNE_2D_CFG} .pkl "
+          f"-> {BOX_CFG}, {n_frames} frames of [dataset]'s 720x1280 set "
+          f"streamed twice (tool wall {walls[0]:.1f} s and {walls[1]:.1f} "
+          f"s): mAP {metrics['mAP']:.2f}, MOTA {metrics['MOTA']:.2f}, "
+          f"equal detections in both runs; diff against its own detections "
+          f"in Detectron's form {diff}: {len(proper)} boxes, "
+          f"{int((~proper).sum())} of them without a +1-convention area of "
+          f"1e-9 px², every other at IoU 1; "
+          f"launches {total}", flush=True)
+    print(f"[surface-ops] phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+    return total
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(torch):
+    """cuDNN restricted to its deterministic engines inside the `with`."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def _kps_held(torch, heatmaps, hm_err, ref_boxes, got_boxes, t, tol):
     """Which keypoints (B, D, T, K) a heatmap error of at most `hm_err` and
     the decode box's own difference cannot move by more than `tol`, and the
@@ -1658,6 +1883,8 @@ def phase_dataset(torch):
 
 FINETUNE_DIR = os.path.join(DATASET_DIR, "finetune")
 FINETUNE_2D_CFG = "configs/video/2d_R50_FPN_kps.yaml"
+FINETUNE_PKL = os.path.join(DATASET_DIR, "r50_fpn_kps_2d.pkl")
+PARITY_DIR = os.path.join(DATASET_DIR, "parity")
 FINETUNE_STEPS, FINETUNE_RESUMED_STEPS, FINETUNE_PERIOD = 4, 2, 2
 # The seeded 2D weights, imported, meet the hard set's GT with losses near
 # 1.2e3; unclipped, even BASE_LR 1e-4 takes them to NaN by the fourth step
@@ -1813,7 +2040,7 @@ def phase_finetune(torch, per_step):
     # 1. The Detectron .pkl of the seeded 2D model.
     cfg2 = load_cfg(os.path.join(REPO, FINETUNE_2D_CFG))
     model2 = build_model(cfg2, device="cuda", seed=0)
-    pkl = os.path.join(FINETUNE_DIR, "r50_fpn_kps_2d.pkl")
+    pkl = FINETUNE_PKL                  # kept for [surface-ops]
     os.makedirs(FINETUNE_DIR)
     tdi.save_detectron_pkl(pkl, model2, cfg2)
     flat2 = _flatten(state_dict_to_jax_params(model2.state_dict(), model2))
@@ -2529,6 +2756,7 @@ def main() -> int:
     multigpu = phase_multigpu(torch, per_step)
     phase_surface_kernels(torch)
     surface = phase_surface(torch)
+    surface_ops = phase_surface_ops(torch)
     # The f32 models of the parity phases run conv1's f32 kernel.
     _reset_counters()
     phase_parity(torch)
@@ -2538,11 +2766,12 @@ def main() -> int:
         raise RuntimeError(f"parity: launch counters {parity}: conv1's f32 "
                            "kernel never ran")
     launches = {k: inference[k] + training[k] + dataset[k] + surface[k]
-                + finetune[k] + multigpu[k] for k in training}
+                + finetune[k] + multigpu[k] + surface_ops[k]
+                for k in training}
     print(f"[launches] inference slice {inference}; training slice "
           f"{training}; dataset paths {dataset}; fine-tuning path "
           f"{finetune}; data-parallel runs {multigpu}; surface paths "
-          f"{surface}; "
+          f"{surface}; parity tool {surface_ops}; "
           f"parity phases {parity}; "
           f"k3 path {results['roi_align_k3']['launches']}; diagnostic "
           f"tool {diag}; sum of the full-width paths {launches}", flush=True)

@@ -37,6 +37,21 @@ def bbox_overlaps(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def bbox_iou_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of two aligned (..., 4) box arrays → (...)."""
+    a = a.float()
+    b = b.float()
+    x1 = torch.maximum(a[..., 0], b[..., 0])
+    y1 = torch.maximum(a[..., 1], b[..., 1])
+    x2 = torch.minimum(a[..., 2], b[..., 2])
+    y2 = torch.minimum(a[..., 3], b[..., 3])
+    iw = (x2 - x1 + 1.0).clamp(min=0.0)
+    ih = (y2 - y1 + 1.0).clamp(min=0.0)
+    inter = iw * ih
+    union = boxes_area(a) + boxes_area(b) - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
 def bbox_transform(boxes: torch.Tensor, deltas: torch.Tensor,
                    weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0)
                    ) -> torch.Tensor:
@@ -75,6 +90,14 @@ def clip_boxes(boxes: torch.Tensor, height: float, width: float
                        b[..., 2].clamp(0.0, width - 1.0),
                        b[..., 3].clamp(0.0, height - 1.0)], dim=-1)
     return out.reshape(boxes.shape)
+
+
+def flip_boxes(boxes: torch.Tensor, width: float) -> torch.Tensor:
+    """Horizontal flip of (..., 4) boxes in an image of the given width:
+    x maps to width - 1 - x (`engine/augment._unflip_boxes`)."""
+    x1 = width - boxes[..., 2] - 1.0
+    x2 = width - boxes[..., 0] - 1.0
+    return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], dim=-1)
 
 
 def filter_small_boxes(boxes: torch.Tensor, min_size: float) -> torch.Tensor:

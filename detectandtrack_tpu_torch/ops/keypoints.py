@@ -1,6 +1,7 @@
-"""Keypoint heatmap decode on torch tensors, the joints' left/right flip, and
-the host-side numpy helpers: OKS, OKS-NMS, keypoint flip and rescale (port
-of detectandtrack_tpu/ops/keypoints.py, whose module imports JAX)."""
+"""Keypoint heatmap decode and heatmap flip on torch tensors, the joints'
+left/right flip, and the host-side numpy helpers: OKS, OKS-NMS, keypoint
+flip and rescale, and the decode's numpy oracle (port of
+detectandtrack_tpu/ops/keypoints.py, whose module imports JAX)."""
 
 from __future__ import annotations
 
@@ -137,6 +138,14 @@ def flip_permutation(dataset: str = "posetrack") -> np.ndarray:
     return perm
 
 
+def flip_heatmaps(heatmaps: torch.Tensor,
+                  dataset: str = "posetrack") -> torch.Tensor:
+    """Flip (..., K, H, W) heatmaps: swap the left/right joint channels by
+    `flip_permutation` and mirror W."""
+    perm = torch.from_numpy(flip_permutation(dataset)).to(heatmaps.device)
+    return heatmaps.index_select(-3, perm).flip(-1)
+
+
 def _parabola_offset(lo: torch.Tensor, c: torch.Tensor, hi: torch.Tensor
                      ) -> torch.Tensor:
     denom = lo - 2.0 * c + hi
@@ -180,3 +189,38 @@ def heatmaps_to_keypoints(heatmaps: torch.Tensor, rois: torch.Tensor
     x_img = x1 + (fx + 0.5) * roi_w / ww
     y_img = y1 + (fy + 0.5) * roi_h / hh
     return torch.stack([x_img, y_img, logit, prob], dim=-1)
+
+
+def heatmaps_to_keypoints_numpy(heatmaps: np.ndarray,
+                                rois: np.ndarray) -> np.ndarray:
+    """Numpy oracle with identical semantics to the device decode."""
+    r, k, hh, ww = heatmaps.shape
+    out = np.zeros((r, k, 4), dtype=np.float32)
+    for i in range(r):
+        x1, y1, x2, y2 = rois[i]
+        roi_w = max(x2 - x1, 1.0)
+        roi_h = max(y2 - y1, 1.0)
+        for j in range(k):
+            hm = heatmaps[i, j]
+            idx = int(np.argmax(hm))
+            py, px = divmod(idx, ww)
+            right = hm[py, min(px + 1, ww - 1)]
+            left = hm[py, max(px - 1, 0)]
+            down = hm[min(py + 1, hh - 1), px]
+            up = hm[max(py - 1, 0), px]
+            c = hm[py, px]
+
+            def para(lo, hi):
+                denom = lo - 2.0 * c + hi
+                if abs(denom) <= 1e-6:
+                    return 0.0
+                return float(np.clip(0.5 * (lo - hi) / denom, -0.5, 0.5))
+
+            fx = px + para(left, right)
+            fy = py + para(up, down)
+            e = np.exp(hm.ravel() - hm.max())
+            out[i, j, 0] = x1 + (fx + 0.5) * roi_w / ww
+            out[i, j, 1] = y1 + (fy + 0.5) * roi_h / hh
+            out[i, j, 2] = hm[py, px]
+            out[i, j, 3] = e[idx] / e.sum()
+    return out

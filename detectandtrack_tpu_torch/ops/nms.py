@@ -1,8 +1,11 @@
 """Fixed-budget greedy NMS and soft-NMS on torch tensors (port of
-`nms_fixed` and `soft_nms_fixed` in detectandtrack_tpu/ops/nms.py).
+`nms_fixed`, `batched_nms_fixed`, `soft_nms_fixed` and `soft_nms_scan` in
+detectandtrack_tpu/ops/nms.py).
 
 The host `nms_numpy` (the multi-scale TTA merge) is a copy of the JAX
-package's. Greedy NMS: stable score sort, the strictly upper-triangular
+package's. `soft_nms_scan` is the sequential pick-and-decay loop, the plain
+oracle `soft_nms_fixed` is held to; no model path runs it. Greedy NMS:
+stable score sort, the strictly upper-triangular
 suppression matrix S[j, i] = "j outranks i and IoU > thresh", and the
 Jacobi fixpoint
 kept ← valid & ¬any_j(S[j, i] & kept[j]), which converges to exactly the
@@ -73,6 +76,20 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     return keep_idx, keep_mask
 
 
+def batched_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor,
+                      class_ids: torch.Tensor, iou_thresh: float,
+                      max_out: int, valid: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Class-aware NMS: boxes of different classes never suppress each
+    other. Each lane's boxes are shifted by class_id · (max coordinate + 2),
+    so one `nms_fixed` call handles every class."""
+    boxes = boxes.float()
+    finite = torch.where(torch.isfinite(boxes), boxes, torch.zeros_like(boxes))
+    max_coord = finite.amax(dim=(-2, -1), keepdim=True) + 1.0
+    offsets = class_ids.float()[..., None] * (max_coord + 1.0)
+    return nms_fixed(boxes + offsets, scores, iou_thresh, max_out, valid)
+
+
 def soft_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
                    sigma: float = 0.5, iou_thresh: float = 0.3,
                    score_thresh: float = 0.001, method: str = "linear",
@@ -132,6 +149,44 @@ def soft_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
             torch.cat([x, x.new_zeros(x.shape[:-1] + (max_out - k,))], -1)
             for x in (idx, mask, out_scores))
     return idx, mask, out_scores
+
+
+def soft_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+                  sigma: float = 0.5, iou_thresh: float = 0.3,
+                  score_thresh: float = 0.001, method: str = "linear",
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sequential soft-NMS, batched over leading dims: `max_out` times, pick
+    the highest alive score (first index on ties), decay every alive score
+    by its overlap with the pick, retire the pick. The Cython reference's
+    loop, and the oracle of `soft_nms_fixed`; same outputs."""
+    n = boxes.shape[-2]
+    scores = scores.float()
+    if valid is not None:
+        scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
+    iou = bbox_overlaps(boxes, boxes)
+    alive = scores > _NEG_INF / 2
+    cur = scores
+    neg = torch.full_like(scores, _NEG_INF)
+    idx, mask, out = [], [], []
+    for _ in range(max_out):
+        masked = torch.where(alive, cur, neg)
+        i = torch.argmax(masked, dim=-1, keepdim=True)
+        top = torch.gather(masked, -1, i)
+        ok = top > score_thresh
+        row = torch.gather(iou, -2, i[..., None].expand(
+            i.shape[:-1] + (1, n)))[..., 0, :]
+        if method == "linear":
+            decay = torch.where(row > iou_thresh, 1.0 - row,
+                                torch.ones_like(row))
+        else:                                       # gaussian
+            decay = torch.exp(-(row * row) / sigma)
+        cur = torch.where(alive, cur * decay, cur)
+        alive = alive.scatter(-1, i, False)
+        idx.append(torch.where(ok, i, torch.zeros_like(i)))
+        mask.append(ok)
+        out.append(torch.where(ok, top, torch.zeros_like(top)))
+    return torch.cat(idx, -1), torch.cat(mask, -1), torch.cat(out, -1)
 
 
 def nms_numpy(boxes: np.ndarray, scores: np.ndarray, thresh: float

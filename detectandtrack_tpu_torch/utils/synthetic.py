@@ -1,7 +1,7 @@
 """Seeded synthetic inputs (numpy) for smoke runs and tests: person-shaped
 proposal tubes over the FPN levels (`make_realistic_tubes`, a copy of the
-JAX package's `bench.make_realistic_tubes`) and batches in the train-step
-contract (`train_batch`)."""
+JAX package's `bench.make_realistic_tubes`), batches in the train-step
+contract (`train_batch`) and soft-NMS lanes (`soft_nms_case`)."""
 
 from __future__ import annotations
 
@@ -77,3 +77,30 @@ def train_batch(rng: np.random.Generator, tubes: np.ndarray,
                              < r ** 2).astype(np.float32)
         batch["gt_mask_valid"] = rng.uniform(size=(b, g, t)) < 0.8
     return batch
+
+
+SOFT_NMS_CASES = ("random", "ties", "invalid", "chain")
+
+
+def soft_nms_case(name: str, rng: np.random.Generator, n: int = 40
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One soft-NMS lane (boxes (n, 4), scores (n,), valid (n,)): random
+    boxes and scores; "ties" with many equal scores and ten copies of one
+    box; "invalid" with ~40% invalid rows; "chain" where each box overlaps
+    only its neighbours (one pick per fixpoint round)."""
+    x1, y1 = rng.uniform(0, 80, n), rng.uniform(0, 80, n)
+    w, h = rng.uniform(4, 40, n), rng.uniform(4, 40, n)
+    boxes = np.stack([x1, y1, x1 + w, y1 + h], 1).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    valid = np.ones(n, bool)
+    if name == "ties":
+        scores = np.round(scores * 4) / 4          # many equal scores
+        boxes[10:20] = boxes[0]                    # identical boxes too
+    elif name == "invalid":
+        valid = rng.uniform(size=n) > 0.4
+    elif name == "chain":                          # one link per round
+        x1 = np.arange(n, dtype=np.float32) * 6.0
+        boxes = np.stack([x1, np.zeros(n, np.float32), x1 + 9.0,
+                          np.full(n, 9.0, np.float32)], 1)
+        scores = np.linspace(1.0, 0.5, n).astype(np.float32)
+    return boxes, scores, valid

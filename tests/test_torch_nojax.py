@@ -1,10 +1,12 @@
 """The port stands alone where JAX is not installed (the GPU machine):
 every module of detectandtrack_tpu_torch imports, the slice runs detect →
 track, one training step of the small model runs, the CLI's demo-data,
-test and track modes run a generated set, and its import-weights and
-train modes import a Detectron `.pkl` and take 2 steps from it, on the
-CPU, in a process where `import jax`, `import flax`, `import detectandtrack_tpu` (the
-JAX package) and `import bench` all fail. No source file of the port and
+test and track modes run a generated set, its import-weights and
+train modes import a Detectron `.pkl` and take 2 steps from it, and the
+parity tool imports a `.pkl`, streams a generated set and diffs its
+detections, on the CPU, in a process where `import jax`, `import flax`,
+`import detectandtrack_tpu` (the JAX package) and `import bench` all
+fail. No source file of the port and
 no line of chip_smoke.py imports the JAX package or `bench`."""
 
 import ast
@@ -213,6 +215,54 @@ with np.load(final) as a, np.load(imported) as b:
 """
 
 
+_PARITY = _BLOCK_JAX + """
+import contextlib, io, json, os, pickle, sys
+from detectandtrack_tpu_torch.core.config import load_cfg
+from detectandtrack_tpu_torch.data.synthetic import (
+    generate_synthetic_posetrack)
+from detectandtrack_tpu_torch.models.detector import build_model
+from detectandtrack_tpu_torch.tools import parity_check
+from detectandtrack_tpu_torch.utils.detectron_import import save_detectron_pkl
+out = sys.argv[1]
+ann = generate_synthetic_posetrack(os.path.join(out, "val"), num_videos=1,
+                                   frames_per_video=3, image_hw=(64, 96),
+                                   seed=3, hard=True, json_name="val.json")
+yaml = os.path.join(out, "tiny.yaml")       # JSON is YAML
+with open(yaml, "w") as f:
+    json.dump({"MODEL": {"CONV_BODY": "resnet18", "COMPUTE_DTYPE": "float32"},
+               "RESNETS": {"WIDTH_PER_GROUP": 8}, "FPN": {"DIM": 32},
+               "FAST_RCNN": {"MLP_HEAD_DIM": 64},
+               "VIDEO": {"VIDEO_ON": True, "NUM_FRAMES": 2,
+                         "TIME_KERNEL_DIM": [3, 1, 1, 1, 1]},
+               "KRCNN": {"NUM_STACKED_CONVS": 1, "CONV_HEAD_DIM": 16},
+               "TEST": {"SHAPE_BUCKETS": [[64, 96]], "SCALE": 64,
+                        "MAX_SIZE": 96, "DETECTIONS_PER_IM": 4,
+                        "SCORE_THRESH": -1.0}}, f)
+cfg = load_cfg(yaml)
+pkl = os.path.join(out, "model.pkl")
+save_detectron_pkl(pkl, build_model(cfg, device="cpu", seed=1), cfg)
+empty = os.path.join(out, "empty.pkl")
+with open(empty, "wb") as f:
+    pickle.dump({"all_boxes": [[], []], "all_keyps": [[], []]}, f)
+run = os.path.join(out, "run")
+argv = ["--pkl", pkl, "--ann", ann, "--frames", os.path.join(out, "val"),
+        "--cfg", yaml, "--out", run, "--device", "cpu"]
+assert parity_check.main(argv + ["--ref-dets", empty]) in (0, 1)
+with open(os.path.join(run, "our_dets.pkl"), "rb") as f:
+    ref = parity_check.to_detectron_detections(pickle.load(f))
+with open(os.path.join(out, "dets.pkl"), "wb") as f:
+    pickle.dump(ref, f)
+args = parity_check.parse_args(argv + ["--ref-dets",
+                                       os.path.join(out, "dets.pkl")])
+with contextlib.redirect_stdout(io.StringIO()) as printed:
+    parity_check._diff_against_reference(args)
+diff = json.loads(printed.getvalue())
+assert diff == {"ref_images_compared": 3, "mean_best_iou": 1.0,
+                "mean_kp_px_delta": 0.0}, diff
+""" + _NOTHING_BLOCKED_LOADED + """print("parity ok")
+"""
+
+
 def _run(code, cwd, timeout=300):
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
@@ -257,6 +307,20 @@ def test_finetune_cli_runs_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "finetune ok" in proc.stdout
+
+
+def test_parity_tool_runs_without_jax(tmp_path):
+    """The parity tool on the CPU (`--device cpu`): a Detectron `.pkl` of
+    the seeded tiny 3D model imported, a generated val set streamed and
+    scored, its detections rewritten in Detectron's form and diffed
+    against themselves (IoU 1, pixel delta 0), with jax/flax/the JAX
+    package/bench blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _PARITY, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "parity ok" in proc.stdout
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
@@ -307,7 +371,7 @@ def test_walk_packages_reaches_the_tools_and_utils():
         "tools.bench_conv", "tools.capture_trace", "tools.trace_summary",
         "tools.conv_roofline", "models.inflate", "utils.detectron_import",
         "utils.training_stats", "utils.subprocess_utils", "utils.vis",
-        "parallel.mesh")}
+        "parallel.mesh", "tools.parity_check")}
     assert want <= mods, want - mods
 
 

@@ -32,6 +32,8 @@ from detectandtrack_tpu_torch.ops import nms as tnms
 from detectandtrack_tpu_torch.utils.params import (_to_port,
                                                    jax_params_to_state_dict,
                                                    state_dict_to_jax_params)
+from detectandtrack_tpu_torch.utils.synthetic import (SOFT_NMS_CASES,
+                                                      soft_nms_case)
 from test_torch_slice import both_cfgs
 from test_torch_slice import _random_params
 
@@ -42,38 +44,20 @@ def test_flip_permutation_matches_jax_table(dataset):
                                   jkps.flip_permutation(dataset))
 
 
-def _soft_case(name, rng, n=40):
-    x1, y1 = rng.uniform(0, 80, n), rng.uniform(0, 80, n)
-    w, h = rng.uniform(4, 40, n), rng.uniform(4, 40, n)
-    boxes = np.stack([x1, y1, x1 + w, y1 + h], 1).astype(np.float32)
-    scores = rng.uniform(0, 1, n).astype(np.float32)
-    valid = np.ones(n, bool)
-    if name == "ties":
-        scores = np.round(scores * 4) / 4          # many equal scores
-        boxes[10:20] = boxes[0]                    # identical boxes too
-    elif name == "invalid":
-        valid = rng.uniform(size=n) > 0.4
-    elif name == "chain":                          # one link per round
-        x1 = np.arange(n, dtype=np.float32) * 6.0
-        boxes = np.stack([x1, np.zeros(n, np.float32), x1 + 9.0,
-                          np.full(n, 9.0, np.float32)], 1)
-        scores = np.linspace(1.0, 0.5, n).astype(np.float32)
-    return boxes, scores, valid
-
-
 @pytest.mark.parametrize("method", ["linear", "gaussian"])
-@pytest.mark.parametrize("case", ["random", "ties", "invalid", "chain"])
+@pytest.mark.parametrize("case", SOFT_NMS_CASES)
 @pytest.mark.parametrize("max_out", [8, 52])
 def test_soft_nms_fixed_matches_jax(method, case, max_out):
     """Three lanes batched in one call against JAX's fixpoint and its
     sequential scan, lane by lane; max_out 52 > N pads."""
     rng = np.random.default_rng(11)
-    lanes = [_soft_case(case, rng) for _ in range(3)]
+    lanes = [soft_nms_case(case, rng) for _ in range(3)]
     kw = dict(sigma=0.5, iou_thresh=0.3, score_thresh=0.05, method=method)
     got = tnms.soft_nms_fixed(
         torch.from_numpy(np.stack([l[0] for l in lanes])),
         torch.from_numpy(np.stack([l[1] for l in lanes])), max_out,
         valid=torch.from_numpy(np.stack([l[2] for l in lanes])), **kw)
+    snapshot = [x.clone() for x in got]
     assert got[0].shape == (3, max_out) and got[0].dtype == torch.int64
     for li, (boxes, scores, valid) in enumerate(lanes):
         for oracle in (jnms.soft_nms_fixed, jnms.soft_nms_scan):
@@ -82,8 +66,61 @@ def test_soft_nms_fixed_matches_jax(method, case, max_out):
                                           np.asarray(mask))
             np.testing.assert_array_equal(got[0][li].numpy(),
                                           np.asarray(idx))
-            np.testing.assert_allclose(got[2][li].numpy(), np.asarray(sc),
-                                       rtol=1e-6, atol=1e-6)
+            try:
+                np.testing.assert_allclose(got[2][li].numpy(),
+                                           np.asarray(sc), rtol=1e-6,
+                                           atol=1e-6)
+            except AssertionError as err:
+                raise AssertionError(f"{err}\n" + _soft_report(
+                    got, snapshot, lanes, li, np.asarray(sc), max_out,
+                    kw)) from err
+
+
+def _soft_report(got, snapshot, lanes, li, want, max_out, kw):
+    """What a score mismatch of `test_soft_nms_fixed_matches_jax` needs to
+    name its cause: whether the port's output changed after the call,
+    whether the port recomputes the same on the batch and on the lane
+    alone, the process's torch state, and for each mismatched slot the
+    box, its IoU and decay rows in the port and in JAX."""
+    from detectandtrack_tpu.ops.boxes import bbox_overlaps as jax_overlaps
+    from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
+
+    boxes, scores, valid = lanes[li]
+    batch = tnms.soft_nms_fixed(
+        torch.from_numpy(np.stack([l[0] for l in lanes])),
+        torch.from_numpy(np.stack([l[1] for l in lanes])), max_out,
+        valid=torch.from_numpy(np.stack([l[2] for l in lanes])), **kw)
+    alone = tnms.soft_nms_fixed(torch.from_numpy(boxes),
+                                torch.from_numpy(scores), max_out,
+                                valid=torch.from_numpy(valid), **kw)
+    iou = bbox_overlaps(torch.from_numpy(boxes),
+                        torch.from_numpy(boxes)).numpy()
+    jiou = np.asarray(jax_overlaps(boxes, boxes))
+    lines = [
+        "soft-NMS mismatch report:",
+        f"  output changed after the call: "
+        f"{not all(torch.equal(a, b) for a, b in zip(got, snapshot))}",
+        f"  batch recomputed now: {batch[2][li].numpy().tolist()}",
+        f"  lane alone now:       {alone[2].numpy().tolist()}",
+        f"  torch {torch.__version__}, threads {torch.get_num_threads()}, "
+        f"cpu capability {torch.backends.cpu.get_cpu_capability()}",
+        f"  lane {li} boxes {boxes.tolist()}",
+        f"  scores {scores.tolist()}, valid {valid.tolist()}"]
+    bad = np.flatnonzero(~np.isclose(got[2][li].numpy(), want, rtol=1e-6,
+                                     atol=1e-6))
+    for slot in bad:
+        i = int(got[0][li, slot])
+        row = iou[i]
+        if kw["method"] == "linear":
+            decay = np.where(row > kw["iou_thresh"], 1.0 - row, 1.0)
+        else:
+            decay = np.exp(-(row * row) / kw["sigma"])
+        lines += [f"  slot {slot}: box {i}, got {got[2][li, slot].item()!r}"
+                  f", want {want[slot]!r}",
+                  f"    IoU row (port) {row.tolist()}",
+                  f"    IoU row (JAX)  {jiou[i].tolist()}",
+                  f"    decay row {decay.tolist()}"]
+    return "\n".join(lines)
 
 
 FINAL_OPTS = {
