@@ -45,6 +45,16 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      8x800x1344 (3 through detect_with_proposals(run_rpn=True) with
      realistic tubes, 1 through the model's own RPN), the launch counters
      are checked, and every clip is tracked;
+  7b. [bench] the port's bench (detectandtrack_tpu_torch/bench.py) in this
+     process at its default full width, R-50 T=8 800x1344, B=4 for infer
+     and B=1 for train and stream, BENCH_ITERS=10 and
+     BENCH_STREAM_FRAMES=64 (the defaults, uncut): each mode's JSON line
+     printed with the card
+     line and checked (value finite and positive, MFU in (0, 100], loss
+     finite, 2 x 64 frames streamed, launch counters of its calls); the
+     FLOP count of one B=1 infer call on the kernel path equal to that of
+     the same call with the plain conv1 and RoIAlign; then `launch --mode
+     bench` (infer, BENCH_ITERS=2) as a subprocess: exit 0, one line;
   8. the training slice at full width: the same model and config in bf16
      takes 1 warm-up and 3 timed SGD steps on one seeded 8x800x1344 clip
      with seeded GT; losses finite, launch counters (conv1 = steps,
@@ -113,8 +123,8 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      each of the golden model and of the mask, C4, center-frame and
      RPN-only branches (losses and every gradient).
 Then it prints the kernels' JSON line (launches summed over the
-full-width paths, the [dataset], [finetune], [multigpu] and
-[surface-ops] runs among them, the torchrun children's counts included;
+full-width paths, the [bench], [dataset], [finetune], [multigpu] and
+[surface-ops] runs among them (not the bench subprocess's), the torchrun children's counts included;
 conv1's f32 kernel counted over the parity phases, K3 on its own path,
 the RoIAlign backward's prep kernel beside its gather, the diagnostic
 kernel per variant at p=7 with its tool's launches; each with its time,
@@ -824,6 +834,180 @@ def phase_slice(torch):
     del model, detect, detect_p, requests, outs
     torch.cuda.empty_cache()
     return launches
+
+
+BENCH_ENV = {"BENCH_ITERS": "10",         # the bench's defaults, uncut: the
+             "BENCH_STREAM_FRAMES": "64"}  # three modes take about 70 s
+BENCH_TIMEOUT = 600         # s for the `launch --mode bench` subprocess
+
+
+@contextlib.contextmanager
+def _bench_env(values):
+    """The BENCH_* environment of the port's bench: its defaults but
+    `values`; restored after."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """conv1 and K1 replaced by their plain versions (on CUDA tensors too),
+    counted by the same FLOP rule as the kernels' entry points."""
+    from detectandtrack_tpu_torch.kernels import conv1 as c1
+    from detectandtrack_tpu_torch.kernels import roi_align as ra
+    from detectandtrack_tpu_torch.utils.flops import counted
+    saved = c1.conv1, ra.roi_align_multilevel
+    c1.conv1 = counted(c1.conv1.work)(c1.conv1_reference)
+    ra.roi_align_multilevel = counted(ra.roi_align_multilevel.work)(
+        ra.roi_align_multilevel_reference)
+    try:
+        yield
+    finally:
+        c1.conv1, ra.roi_align_multilevel = saved
+
+
+def _bench_line(tag, text):
+    lines = [line for line in text.splitlines() if line.startswith("{")]
+    if len(lines) != 1:
+        raise RuntimeError(f"{tag}: {len(lines)} JSON lines, expected 1: "
+                           f"{text[-2000:]}")
+    line = json.loads(lines[0])
+    if "error" in line:
+        raise RuntimeError(f"{tag}: {line['error']}")
+    return line
+
+
+def phase_bench(torch):
+    """The port's bench (`detectandtrack_tpu_torch/bench.py`) in-process at
+    its default full width (R-50, T=8, 800x1344; infer B=4, train and
+    stream B=1) and BENCH_ENV, each mode's line checked: value
+    finite and positive, MFU in (0, 100], the loss finite, every streamed
+    frame, the launch counters those of the mode's calls. Inside infer,
+    the FLOP count of one B=1 call on the kernel path equals the count of
+    the same call with the plain conv1 and RoIAlign (whose launches are
+    left out). Then `launch --mode bench` (infer, 2 iterations) as a
+    subprocess: exit 0 and one line → launches of the in-process runs."""
+    import io
+    import subprocess
+
+    import detectandtrack_tpu_torch.bench as bench
+    from detectandtrack_tpu_torch.utils.env import card_line
+
+    counted_flops = bench.count_flops
+    checked = []
+    excluded = {}
+
+    def count_and_check(fn, *args):
+        flops = counted_flops(fn, *args)
+        if not checked:                    # the realistic call, once
+            one = [a[:1] for a in args]
+            before = _read_counters()
+            kern = counted_flops(fn, *one)
+            mid = _read_counters()
+            with _plain_kernels():
+                plain = counted_flops(fn, *one)
+            after = _read_counters()
+            if mid == before or after != mid:
+                raise RuntimeError(f"[bench] FLOP check: launches {before} "
+                                   f"-> {mid} (kernel path) -> {after} "
+                                   "(plain path)")
+            if kern != plain:
+                raise RuntimeError(f"[bench] FLOP count of one B=1 infer "
+                                   f"call: kernel path {kern!r}, plain "
+                                   f"conv1 and RoIAlign {plain!r}")
+            _add(excluded, {k: mid[k] - before[k] for k in mid})
+            checked.append(kern)
+        return flops
+
+    iters = int(BENCH_ENV["BENCH_ITERS"])
+    frames = int(BENCH_ENV["BENCH_STREAM_FRAMES"])
+    t = 8
+    calls = {"infer": 2 * (iters + 2),    # count, warm-up, iters; x2 paths
+             "train": iters + 2,          # count, warm-up, iters
+             "stream": 2 * _windows(frames, t)}
+    total = {}
+    bench.count_flops = count_and_check
+    try:
+        with _bench_env(BENCH_ENV):
+            for mode, fn in (("infer", bench.bench_infer),
+                             ("train", bench.bench_train),
+                             ("stream", bench.bench_stream)):
+                torch.cuda.synchronize()
+                _reset_counters()
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    fn("cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _read_counters()
+                if mode == "infer":
+                    launches = {k: v - excluded[k]
+                                for k, v in launches.items()}
+                line = _bench_line(f"[bench] {mode}", buf.getvalue())
+                if mode == "infer":
+                    print(f"[bench] FLOP count of one B=1 infer call: "
+                          f"{checked[0]!r} on the kernel path, equal to the "
+                          f"plain conv1 and RoIAlign path's; kernel launches "
+                          f"of that check, left out: {excluded}", flush=True)
+                n = calls[mode]
+                want = {"conv1": n, "conv1_f32": 0, "roi_align": 2 * n,
+                        "roi_align_backward": 2 * n if mode == "train"
+                        else 0,
+                        "roi_align_backward_prep": 2 * n if mode == "train"
+                        else 0}
+                if launches != want:
+                    raise RuntimeError(f"[bench] {mode}: launch counters "
+                                       f"{launches}, expected {want}")
+                value = line["value"]
+                if not (isinstance(value, (int, float))
+                        and np.isfinite(value) and value > 0):
+                    raise RuntimeError(f"[bench] {mode}: value {value!r}")
+                for key in ("mfu_pct", "mfu_pct_degenerate"):
+                    if mode != "stream" and key in line and not (
+                            line[key] is not None and 0 < line[key] <= 100):
+                        raise RuntimeError(f"[bench] {mode}: {key} "
+                                           f"{line[key]!r} outside (0, 100]")
+                if mode == "train" and not np.isfinite(line["loss_total"]):
+                    raise RuntimeError(f"[bench] train: loss_total "
+                                       f"{line['loss_total']!r}")
+                if mode == "stream" and line["frames"] != 2 * frames:
+                    raise RuntimeError(f"[bench] stream: {line['frames']} "
+                                       f"frames, expected {2 * frames}")
+                _add(total, launches)
+                print(f"[bench] {mode} ({line['card']}), {wall:.1f} s in "
+                      f"all, launches {launches}: {json.dumps(line)}",
+                      flush=True)
+                del buf
+                torch.cuda.empty_cache()
+    finally:
+        bench.count_flops = counted_flops
+    if not checked:
+        raise RuntimeError("[bench] the FLOP check never ran")
+
+    argv = [sys.executable, "-m", "detectandtrack_tpu_torch.cli.launch",
+            "--mode", "bench"]
+    with _bench_env({"BENCH_MODE": "infer", "BENCH_ITERS": "2"}):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=REPO, capture_output=True,
+                              text=True, timeout=BENCH_TIMEOUT,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise RuntimeError(f"[bench] launch --mode bench: exit "
+                           f"{proc.returncode}: {proc.stderr[-3000:]}")
+    line = _bench_line("[bench] launch --mode bench", proc.stdout)
+    print(f"[bench] launch --mode bench (BENCH_ITERS=2, {card_line()}): "
+          f"exit 0 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(line)}", flush=True)
+    return total
 
 
 def _train_steps(torch, tag, cfg, n_steps, seed):
@@ -2743,6 +2927,7 @@ def main() -> int:
     diag = phase_diag(torch, results)
     phase_tools(torch)
     inference = phase_slice(torch)
+    bench = phase_bench(torch)
     # With random weights (no pretrained backbone, identity frozen-BN
     # affines) the unclipped config's own BASE_LR 0.005 blows the losses up
     # within three steps; TRAIN_SMOKE_LR keeps every loss finite and
@@ -2766,9 +2951,10 @@ def main() -> int:
         raise RuntimeError(f"parity: launch counters {parity}: conv1's f32 "
                            "kernel never ran")
     launches = {k: inference[k] + training[k] + dataset[k] + surface[k]
-                + finetune[k] + multigpu[k] + surface_ops[k]
+                + finetune[k] + multigpu[k] + surface_ops[k] + bench[k]
                 for k in training}
-    print(f"[launches] inference slice {inference}; training slice "
+    print(f"[launches] inference slice {inference}; bench {bench}; "
+          f"training slice "
           f"{training}; dataset paths {dataset}; fine-tuning path "
           f"{finetune}; data-parallel runs {multigpu}; surface paths "
           f"{surface}; parity tool {surface_ops}; "

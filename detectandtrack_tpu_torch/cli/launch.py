@@ -5,7 +5,9 @@ Port of detectandtrack_tpu/cli/launch.py: one entry point that merges the
 YAML config and dotted overrides, then runs training (train), the
 Detectron weight import (import-weights), dataset inference (test),
 stage-2 linking and evaluation (track), scoring of saved tracks (eval),
-online detect+track (stream) or the synthetic-data generator (demo-data).
+online detect+track (stream), the synthetic-data generator (demo-data)
+or the port's bench (bench: `detectandtrack_tpu_torch/bench.py`, set by
+its BENCH_* environment variables; the config and opts are not read).
 The model runs on `--device` (default `cuda`; `cpu` must be asked for);
 with `cuda` and no CUDA device the launcher stops rather than run on the
 CPU.
@@ -29,6 +31,7 @@ Usage:
   launch --cfg ... --mode eval [--detections tracks_dir]
   launch --cfg ... --mode stream --weights model_final.npz [--vis]
   launch --mode demo-data --out data/synthetic
+  launch --mode bench   (BENCH_MODE=infer|train|stream, BENCH_* knobs)
   (--device cpu: run the model on the CPU)
 
 `--weights` takes the JAX package's flat `.npz` (flax naming), so a JAX
@@ -46,13 +49,6 @@ import logging
 import os
 import sys
 from typing import Optional
-
-_NOT_PORTED = {
-    # mode → what brings it
-    "bench": "the port's bench and its cells are the work of a benchmark "
-             "change (ROADMAP.md), not of the port's CLI",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="DetectAndTrack launcher "
@@ -535,17 +531,23 @@ def mode_import_weights(args, cfg):
     return out
 
 
+def mode_bench(args, cfg):
+    """The port's benchmark (`detectandtrack_tpu_torch/bench.py`) on
+    `--device`, as the JAX CLI runs bench.py: one JSON line, the mode and
+    sizes from its BENCH_* environment variables → its exit code (0; a
+    failure prints the bench's error line and raises)."""
+    from .. import bench
+    return bench.main(["--device", args.device])
+
+
 _MODES = {"train": mode_train, "test": mode_test, "track": mode_track,
           "stream": mode_stream, "eval": mode_eval,
           "demo-data": mode_demo_data,
-          "import-weights": mode_import_weights}
+          "import-weights": mode_import_weights, "bench": mode_bench}
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode in _NOT_PORTED:
-        raise SystemExit(f"--mode {args.mode} is not ported to "
-                         f"detectandtrack_tpu_torch: {_NOT_PORTED[args.mode]}")
     # A multi-process launch starts its process group before anything
     # touches the card (a no-op without torchrun's environment).
     import torch.distributed as dist

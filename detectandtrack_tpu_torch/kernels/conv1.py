@@ -14,7 +14,8 @@ the gradient to x and the weights, taken from the plain conv's autograd
 `_conv1_reference`.
 
 Launch counts: `conv1.launches` (either kernel), `conv1.launches_tc` and
-`conv1.launches_f32` (each kernel's own).
+`conv1.launches_f32` (each kernel's own). Inside `utils.flops.count_flops`
+a `conv1` call counts `roofline.conv1_flops`, whichever version ran.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils import roofline
+from ..utils.flops import counted
 
 _SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
 
@@ -157,6 +160,7 @@ def conv1_tc(x: torch.Tensor, k7: torch.Tensor, t: int) -> torch.Tensor:
     return out
 
 
+@counted(lambda x, t, **_: roofline.conv1_flops(x.shape, t))
 def conv1(x: torch.Tensor, k7: torch.Tensor, t: int,
           dtype: torch.dtype) -> torch.Tensor:
     """conv1 of the inflated ResNet → (B, T, ceil(H/2), ceil(W/2), 64).

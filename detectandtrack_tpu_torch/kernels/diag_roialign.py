@@ -19,7 +19,9 @@ and a[r, j] = bf16(max(0, 1 - |j - x1|)) for r < p, j < 64 (x1 itself, not
 relative to ox). `diag_pool` launches `csrc/diag_roialign.cu` (both
 contractions on the bf16 tensor cores, f32 sums) for CUDA tensors, runs
 the plain version `diag_pool_reference` for CPU tensors, and raises on any
-other device. Launch counts: `diag_pool.launches[variant]`.
+other device. Launch counts: `diag_pool.launches[variant]`. Inside
+`utils.flops.count_flops` a `diag_pool` call counts `roofline.diag_work`'s
+operations, whichever version ran.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build
+from ..utils import roofline
+from ..utils.flops import counted
 
 PATCH = 64                    # patch rows and columns
 VARIANTS = ("full", "noswitch", "nodma", "nodot")
@@ -153,6 +157,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@counted(lambda feats, levels, p, variant, **_: roofline.diag_work(
+    0, levels.shape[0], p, feats[0].shape[-1], variant).flops)
 def diag_pool(feats: Sequence[torch.Tensor], rois: torch.Tensor,
               levels: torch.Tensor, p: int = 7,
               variant: str = "full") -> torch.Tensor:

@@ -23,6 +23,8 @@ in-range samples clamp to [0, size-1], mean over all s² samples.
 `roi_align_multilevel_autograd` and `roi_align_pairs_autograd` wrap the
 forward and the backward in one `torch.autograd.Function` (gradient to the
 level maps only; rois, levels and slabs get none), on CPU and CUDA alike.
+Inside `utils.flops.count_flops` each call of the three entry points
+counts its `roofline` FLOPs, whichever version ran.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from ..utils import roofline
+from ..utils.flops import counted
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LEVELS = 8
@@ -329,6 +333,12 @@ def _check_index(what: str, name: str, t: Optional[torch.Tensor], n: int,
                          f"{t.device}")
 
 
+def _forward_flops(features, rois, output_size, sampling_ratio, **_):
+    return roofline.roi_align_flops(rois.numel() // 4, output_size,
+                                    features[0].shape[-1], sampling_ratio)
+
+
+@counted(_forward_flops)
 def roi_align_multilevel(features: Sequence[torch.Tensor],
                          strides: Sequence[int], rois: torch.Tensor,
                          levels: torch.Tensor, output_size: int = 7,
@@ -396,6 +406,7 @@ def _check_pairs(what: str, shapes, rois: torch.Tensor, slabs: torch.Tensor,
     return n
 
 
+@counted(_forward_flops)
 def roi_align_pairs(features: Sequence[torch.Tensor],
                     strides: Sequence[int], rois: torch.Tensor,
                     slabs: torch.Tensor,
@@ -490,6 +501,8 @@ def _launch_prep(lib, tables, shapes, rois, slabs, levels, p, s):
     return keys, footprints, samples
 
 
+@counted(lambda grad, sampling_ratio, **_: roofline.backward_flops(
+    grad.numel(), sampling_ratio))
 def roi_align_backward(shapes: Sequence[Sequence[int]], dtype: torch.dtype,
                        strides: Sequence[int], rois: torch.Tensor,
                        slabs: torch.Tensor, levels: Optional[torch.Tensor],

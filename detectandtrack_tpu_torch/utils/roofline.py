@@ -79,6 +79,25 @@ def _size(dtype) -> int:
     return 2 if str(dtype).endswith("bfloat16") else 4
 
 
+def conv1_flops(shape: Sequence[int], t: int) -> float:
+    """The model FLOPs of conv1 on a (B, T, H, W, 3) clip at t temporal
+    taps: 2 per multiply-add, the count of the plain F.conv3d."""
+    b, nt, h, w, _ = shape
+    return 2.0 * b * nt * ((h + 1) // 2) * ((w + 1) // 2) * 64 * t * 49 * 3
+
+
+def roi_align_flops(n: int, p: int, c: int, s: int = 2) -> float:
+    """K1's / K3's forward FLOPs for n rois at P x P bins of C channels:
+    2 per bilinear corner of each of the s x s samples of a bin."""
+    return float(n * p * p * c * s * s * 4 * 2)
+
+
+def backward_flops(grad_elems: int, s: int = 2) -> float:
+    """The RoIAlign backward's FLOPs: 2 per corner tap of each of the
+    s x s samples behind every grad element."""
+    return float(grad_elems * s * s * 4 * 2)
+
+
 def conv1_work(shape: Sequence[int], t: int, dtype,
                peaks: Peaks = H100_SXM) -> Work:
     """conv1 on a (B, T, H, W, 3) clip: x and k7 read once, the output
@@ -91,7 +110,7 @@ def conv1_work(shape: Sequence[int], t: int, dtype,
     size = _size(dtype)
     outs = b * nt * ((h + 1) // 2) * ((w + 1) // 2) * 64
     n_bytes = (b * nt * h * w * 3 + t * 49 * 3 * 64 + outs) * size
-    flops = 2 * outs * t * 49 * 3
+    flops = conv1_flops(shape, t)
     if size == 2:
         return Work(n_bytes, flops, "bf16")
     return min(Work(n_bytes, 3 * flops, "tf32"), Work(n_bytes, flops, "f32"),
@@ -112,7 +131,7 @@ def roi_align_work(shapes: Sequence[Sequence[int]], strides: Sequence[int],
     n, c = rois.shape[0], shapes[0][3]
     size = _size(dtype)
     n_bytes = (cells.numel() + n * p * p) * c * size + n * 5 * 4
-    return Work(n_bytes, n * p * p * c * 4 * 4 * 2)
+    return Work(n_bytes, roi_align_flops(n, p, c))
 
 
 def backward_work(grad: torch.Tensor, shapes: Sequence[Sequence[int]],
@@ -123,7 +142,7 @@ def backward_work(grad: torch.Tensor, shapes: Sequence[Sequence[int]],
     n_bytes = (grad.numel() * grad.element_size()
                + sum(a * b * c * d for a, b, c, d in shapes) * _size(dtype)
                + grad.shape[0] * 24)
-    return Work(n_bytes, grad.numel() * 32)
+    return Work(n_bytes, backward_flops(grad.numel()))
 
 
 def backward_prep_work(n: int, p: int) -> Work:

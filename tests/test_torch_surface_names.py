@@ -1,8 +1,9 @@
 """The port's public surface against the JAX package's, by name: for every
-module of detectandtrack_tpu/ and tools/, the public top-level names
-(functions, classes, module-level assignments) that the port's module of
-the same path (detectandtrack_tpu_torch/<path>, tools/ under
-detectandtrack_tpu_torch/tools/) does not define. What remains must be
+module of detectandtrack_tpu/ and tools/, and for the root bench.py, the
+public top-level names (functions, classes, module-level assignments) that
+the port's module of the same path (detectandtrack_tpu_torch/<path>, tools/
+under detectandtrack_tpu_torch/tools/, bench.py as
+detectandtrack_tpu_torch/bench.py) does not define. What remains must be
 exactly the exclusions below, each with its reason: a JAX name added
 later without a counterpart fails here."""
 
@@ -19,10 +20,10 @@ _K3 = ("a form over the Pallas K3; the port's one single-level path is "
 _V5E = "a TPU v5e peak; the port's peaks are in utils/roofline.py"
 
 EXCLUDED = {
-    "cli/launch.py": {
-        "mode_bench": "runs bench.py, the earlier work's benchmark; the "
-                      "port's bench and its cells are the benchmark work "
-                      "(ROADMAP.md §1 item 1)",
+    "bench.py": {
+        "PEAK_BF16_FLOPS": _V5E,
+        "make_realistic_tubes": "kept in utils/synthetic.py, held equal to "
+                                "bench.py's by test_torch_port_copies.py",
     },
     "kernels/conv1.py": {
         "conv1_s2d_pallas": "ported as kernels/conv1.py::conv1 (K2, "
@@ -117,10 +118,11 @@ def _missing():
                                    recursive=True)]
     tools = [os.path.relpath(p, REPO)
              for p in glob.glob(os.path.join(REPO, "tools", "*.py"))]
+    root = tools + ["bench.py"]
     out = {}
-    for rel in jax_mods + tools:
+    for rel in jax_mods + root:
         src = os.path.join(REPO, "detectandtrack_tpu", rel) \
-            if rel not in tools else os.path.join(REPO, rel)
+            if rel not in root else os.path.join(REPO, rel)
         port = os.path.join(REPO, "detectandtrack_tpu_torch", rel)
         if not os.path.exists(port):
             out[rel] = {"*"}
