@@ -602,6 +602,153 @@ def phase_backward(torch, results):
 DIAG_N = 4800               # the diagnostic tool's own pairs
 
 
+def _greedy_lanes(torch, lanes, n, chain, seed, h=800, w=1344):
+    """(boxes (lanes, n, 4), scores (lanes, n)) on the card: boxes spread
+    over an h x w image with random sizes, or a long suppression chain
+    (12 px boxes 3 px apart in score order: each suppresses only the
+    next at IoU 0.5, N dependent decisions)."""
+    rng = np.random.default_rng(seed)
+    if chain:
+        x1 = np.arange(n, dtype=np.float32) * 3.0
+        one = np.stack([x1, np.zeros(n, np.float32), x1 + 11.0,
+                        np.full(n, 11.0, np.float32)], 1)
+        boxes = np.broadcast_to(one, (lanes, n, 4)).copy()
+        scores = np.broadcast_to(np.linspace(1.0, 0.5, n, dtype=np.float32),
+                                 (lanes, n)).copy()
+    else:
+        x1, y1 = rng.uniform(0, w - 64, (lanes, n)), rng.uniform(
+            0, h - 64, (lanes, n))
+        bw, bh = rng.uniform(16, 320, (lanes, n)), rng.uniform(
+            16, 320, (lanes, n))
+        boxes = np.stack([x1, y1, np.minimum(x1 + bw, w - 1),
+                          np.minimum(y1 + bh, h - 1)], -1).astype(np.float32)
+        scores = rng.uniform(0, 1, (lanes, n)).astype(np.float32)
+    return (torch.as_tensor(boxes).cuda(), torch.as_tensor(scores).cuda())
+
+
+def _keep_inputs(torch, boxes, scores, thresh):
+    """`ops/nms.py::nms_fixed`'s suppression matrix and sorted validity."""
+    from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
+    n = boxes.shape[-2]
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    b = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
+    rank = torch.arange(n, device=boxes.device)
+    supp = (bbox_overlaps(b, b) > thresh) & (rank[:, None] < rank[None, :])
+    valid = torch.ones_like(scores, dtype=torch.bool)
+    valid[..., ::7] = False            # some invalid rows
+    return supp, valid
+
+
+def _soft_inputs(torch, boxes, scores, method, sigma=0.5, thresh=0.3):
+    """`ops/nms.py::soft_nms_fixed`'s inputs to the confirmation loop."""
+    from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
+    n = boxes.shape[-2]
+    iou = bbox_overlaps(boxes, boxes)
+    if method == "linear":
+        dmat = torch.where(iou > thresh, 1.0 - iou, torch.ones_like(iou))
+    else:
+        dmat = torch.exp(-(iou * iou) / sigma)
+    overlaps = (dmat < 1.0) & ~torch.eye(n, dtype=torch.bool,
+                                         device=boxes.device)
+    alive = torch.ones_like(scores, dtype=torch.bool)
+    alive[..., ::9] = False
+    return scores, dmat, overlaps, alive
+
+
+def _soft_rounds(torch, scores, dmat, overlaps, alive):
+    """The confirmation rounds these inputs need (the last confirms
+    nothing): the data-dependent trip count of soft_nms_confirm's loop."""
+    n = scores.shape[-1]
+    rank = torch.arange(n, device=scores.device)
+    earlier = rank[:, None] < rank[None, :]
+    confirmed = torch.zeros_like(alive)
+    rounds = 0
+    while True:
+        rounds += 1
+        decays = torch.where(confirmed[..., :, None] & overlaps, dmat,
+                             torch.ones_like(dmat))
+        prov = scores * decays.prod(dim=-2)
+        pj, pi = prov[..., :, None], prov[..., None, :]
+        beats = (pj > pi) | ((pj == pi) & earlier)
+        outranked = ((~confirmed & alive)[..., :, None] & overlaps
+                     & beats).any(dim=-2)
+        newly = ~confirmed & alive & ~outranked
+        if not bool(newly.any()):
+            return rounds
+        confirmed = confirmed | newly
+
+
+def phase_nms(torch, results):
+    """The NMS loop kernels against their plain versions at the main
+    path's shapes: nms_keep on the RPN's 5 x B = 10 lanes of N=1000 and
+    the final NMS's B=2 lanes of N=300 (IoU 0.7 and 0.5), random boxes
+    and a long suppression chain, bit for bit; soft_nms_confirm on the
+    soft-NMS config's B=2 lanes of N=300, linear and gaussian, random
+    boxes and a chain, within 1e-6 (bit equality reported). Each with its
+    time, its plain version's and its bound."""
+    from detectandtrack_tpu_torch.kernels import nms as kn
+    from detectandtrack_tpu_torch.utils import roofline
+
+    for label, lanes, n, thresh in (("RPN", 10, 1000, 0.7),
+                                    ("final", 2, 300, 0.5)):
+        for chain in (False, True):
+            boxes, scores = _greedy_lanes(torch, lanes, n, chain, seed=n)
+            supp, valid = _keep_inputs(torch, boxes, scores, thresh)
+            got = kn.nms_keep(supp, valid)
+            ref = kn.nms_keep_reference(supp, valid)
+            name = (f"nms_keep {label} {lanes} lanes N={n} "
+                    f"{'chain' if chain else 'random'}")
+            if not torch.equal(got, ref):
+                bad = (got != ref).nonzero()[:5].tolist()
+                raise RuntimeError(f"{name}: differs from its plain version "
+                                   f"at {bad}")
+            kept = int(ref.sum())
+            ms = _time_ms(torch, lambda: kn.nms_keep(supp, valid))
+            plain_ms = _time_ms(torch, lambda: kn.nms_keep_reference(
+                supp, valid), iters=2, warmup=1)
+            bound_ms, bound_by = roofline.bound(roofline.nms_keep_work(
+                lanes, n, kept))
+            print(f"[nms] {name}: equal bit for bit, {kept} kept; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+                  f"{bound_ms:.5f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.2f}% of it", flush=True)
+            if label == "RPN" and not chain:
+                results["nms_keep"] = dict(
+                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    neg_inf = -1e10
+    for method in ("linear", "gaussian"):
+        for chain in (False, True):
+            boxes, scores = _greedy_lanes(torch, 2, 300, chain, seed=31)
+            args = _soft_inputs(torch, boxes, scores, method)
+            got = kn.soft_nms_confirm(*args, neg_inf)
+            ref = kn.soft_nms_confirm_reference(*args, neg_inf)
+            name = (f"soft_nms_confirm {method} 2 lanes N=300 "
+                    f"{'chain' if chain else 'random'}")
+            err = (got - ref).abs().max().item()
+            same = torch.equal(got, ref)
+            if not err <= 1e-6 or not torch.equal(got > neg_inf / 2,
+                                                  ref > neg_inf / 2):
+                raise RuntimeError(f"{name}: max_abs_err {err} > 1e-6 or "
+                                   "the confirmed sets differ")
+            rounds = _soft_rounds(torch, *args)
+            ms = _time_ms(torch, lambda: kn.soft_nms_confirm(*args, neg_inf))
+            plain_ms = _time_ms(torch, lambda: kn.soft_nms_confirm_reference(
+                *args, neg_inf), iters=1, warmup=0)
+            bound_ms, bound_by = roofline.bound(
+                roofline.soft_nms_confirm_work(2, 300, rounds))
+            print(f"[nms] {name}: max_abs_err={err:.3g} (tol 1e-6; "
+                  f"{'bit for bit' if same else 'not bit for bit'}), "
+                  f"{rounds} rounds; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of it",
+                  flush=True)
+            if method == "linear" and not chain:
+                results["soft_nms_confirm"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def phase_diag(torch, results):
     """The diagnostic kernel (kernels/diag_roialign.py) on its path, the
     tool tools/diag_roialign.py: its main() at n=4800, p=7 and p=14, with
@@ -717,11 +864,49 @@ def _heads(model):
 
 
 def _reset_counters():
+    from detectandtrack_tpu_torch.kernels import nms as kn
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
     conv1.launches = conv1.launches_tc = conv1.launches_f32 = 0
     ra.roi_align_multilevel.launches = 0
     ra.roi_align_backward.launches = ra.backward_prep.launches = 0
+    kn.nms_keep.launches = kn.soft_nms_confirm.launches = 0
+
+
+def _nms_counters():
+    """The NMS kernels' launches since `_reset_counters` (kept apart from
+    `_read_counters`, whose keys every path's expected counts name)."""
+    from detectandtrack_tpu_torch.kernels import nms as kn
+    return {"nms_keep": kn.nms_keep.launches,
+            "soft_nms_confirm": kn.soft_nms_confirm.launches}
+
+
+# The NMS kernels' launches on the serving and training paths that check
+# them ([slice], [graphs], [train], [surface]): the kernels line's counts.
+NMS_LAUNCHES = {"nms_keep": 0, "soft_nms_confirm": 0}
+
+
+def _nms_per_call(model, passes=1, train=False):
+    """The NMS kernels one call of `model` launches: the RPN's greedy NMS
+    once per pass, then (not in training, not RPN-only) the final NMS,
+    soft-NMS under TEST.SOFT_NMS_ENABLED."""
+    cfg = model.cfg
+    final = not train and not cfg.MODEL.RPN_ONLY
+    soft = final and cfg.TEST.SOFT_NMS_ENABLED
+    return {"nms_keep": passes + int(final and not soft),
+            "soft_nms_confirm": int(soft)}
+
+
+def _check_nms(tag, model, calls, passes=1, train=False):
+    got = _nms_counters()
+    want = {k: calls * v for k, v in _nms_per_call(model, passes,
+                                                   train).items()}
+    if got != want:
+        raise RuntimeError(f"{tag}: NMS kernel launches {got}, expected "
+                           f"{want} for {calls} calls")
+    for k, v in got.items():
+        NMS_LAUNCHES[k] += v
+    return got
 
 
 def _read_counters():
@@ -767,6 +952,7 @@ def _serve(torch, tag, model, detect, warmup, requests, passes=1):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     launches = _read_counters()
+    nms = _check_nms(tag, model, len(requests), passes)
     peak = torch.cuda.max_memory_allocated()
     heads = _heads(model)
     per_request = {"conv1": passes, "conv1_f32": 0, "roi_align_backward": 0,
@@ -789,8 +975,8 @@ def _serve(torch, tag, model, detect, warmup, requests, passes=1):
           f"requests of B={b} {t}x{h}x{w} after 1 warm-up: per-request s "
           f"{[round(s, 4) for s in secs]} (median "
           f"{statistics.median(secs):.4f}); peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; launches {launches}; {n_valid} valid "
-          f"detections", flush=True)
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches}, NMS kernels "
+          f"{nms}; {n_valid} valid detections", flush=True)
     return outs, launches
 
 
@@ -834,6 +1020,250 @@ def phase_slice(torch):
     del model, detect, detect_p, requests, outs
     torch.cuda.empty_cache()
     return launches
+
+
+GRAPH_TIMED = 4      # [graphs]: requests per mode in each of two turns
+
+
+# Graphed against eager outputs: where not bit for bit, within the golden
+# tolerances (tests/test_golden.py: scores 1e-4, boxes and keypoints 1e-2;
+# mask probabilities 1e-4, bf16 features 2^-6 of their largest |value|).
+GRAPH_TOLS = {"scores": 1e-4, "boxes": 1e-2, "keypoints": 1e-2,
+              "masks": 1e-4}
+
+
+def _outputs_match(torch, tag, got, want):
+    """Graphed outputs against eager ones on the same model and inputs:
+    the valid masks equal, every other key bit for bit or within
+    GRAPH_TOLS → {key: max |difference|} of the keys that are not bit for
+    bit."""
+    if set(got) != set(want) or not torch.equal(got["valid"], want["valid"]):
+        raise RuntimeError(f"{tag}: graphed keys {sorted(got)} or valid mask "
+                           f"differ from the eager ones")
+    diff = {}
+    for k in want:
+        if torch.equal(got[k], want[k]):
+            continue
+        err = (got[k].float() - want[k].float()).abs().max().item()
+        tol = GRAPH_TOLS.get(k, BF16_REL_TOL * max(
+            1.0, want[k].float().abs().max().item()))
+        if not err <= tol:
+            raise RuntimeError(f"{tag}: graphed {k} differs from eager by "
+                               f"{err} > {tol}")
+        diff[k] = err
+    return diff
+
+
+@contextlib.contextmanager
+def _eager_entry_points():
+    """The port's entry points uncaptured, as before CUDA graphs: a CUDA
+    model's functions from `make_detect_fn`/`make_kps_aug_fns` eager."""
+    from detectandtrack_tpu_torch.engine import inference as tinf
+    saved = tinf._on_device
+    tinf._on_device = lambda model, fn, name: fn
+    try:
+        yield
+    finally:
+        tinf._on_device = saved
+
+
+def _sync_free(torch, tag, fn, *args):
+    """One eager call under `set_sync_debug_mode("error")`: any host sync
+    inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(*args)
+    except RuntimeError as err:
+        raise RuntimeError(f"{tag}: a host sync in an eager call: {err}") \
+            from err
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_graphs(torch):
+    """The captured entry points against the eager ones, in this process:
+    (1) the main config at B=2 8x800x1344: an eager call under
+    `set_sync_debug_mode("error")`; the graphed outputs of two requests
+    (graph replays) equal the eager outputs of the same model and inputs
+    bit for bit; kernel launches of eager calls and replays counted alike;
+    request time (host clock to `synchronize()`), eager and graphed in
+    turns (eager, graphed, graphed, eager), the graphed request's
+    CUDA-event span (the card's work, one program) and the idle share it
+    implies; peak memory of each; (2) the bench's infer path
+    (`with_proposals`, `run_rpn`, B=4): the same equality and sync checks,
+    and the bench's double-buffered clips/s (`bench._timed`, 10 calls)
+    eager and graphed in turns; (3) the bench's stream p50 with the entry
+    points eager ([bench] runs it graphed) → the launches of (1). The
+    eager path itself is not bit for bit from call to call (keypoints
+    move by an ulp); with cuDNN's deterministic engines it is, and so are
+    the replays."""
+    import io
+
+    import detectandtrack_tpu_torch.bench as bench
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.graphs import GraphedFunction
+    from detectandtrack_tpu_torch.engine.inference import (make_detect_fn,
+                                                            read_back)
+    from detectandtrack_tpu_torch.models.detector import build_model
+    from detectandtrack_tpu_torch.utils.env import card_line
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
+
+    wall0 = time.perf_counter()
+    card = card_line()
+    cfg = load_cfg(os.path.join(REPO, BOX_CFG))
+    b, t, (h, w) = 2, cfg.VIDEO.NUM_FRAMES, cfg.TEST.SHAPE_BUCKETS[0]
+    model = build_model(cfg, device="cuda", seed=0)
+    detect = make_detect_fn(model)
+    if not isinstance(detect, GraphedFunction):
+        raise RuntimeError("[graphs] make_detect_fn of a CUDA model is not "
+                           "graphed")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    clips = [torch.randn((b, t, h, w, 3), device="cuda", generator=gen)
+             for _ in range(2)]
+    detect.eager(clips[0])                    # cuDNN plans, device constants
+    _sync_free(torch, "[graphs] main path", detect.eager, clips[1])
+
+    def request(fn, c, log):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn(c)
+        end.record()
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, start.elapsed_time(end) / 1e3))
+
+    times = {"eager": [], "graphed": []}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(GRAPH_TIMED):
+        request(detect.eager, clips[i % 2], times["eager"])
+    peak_eager = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    detect(clips[0])                          # warm-up and capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    _reset_counters()
+    diff, eager_diff = {}, {}
+    for c in clips:
+        want = detect.eager(c)
+        for k, v in _outputs_match(torch, "[graphs] main path", detect(c),
+                                   want).items():
+            diff[k] = max(v, diff.get(k, 0.0))
+        for k, v in _outputs_match(torch, "[graphs] main path, eager twice",
+                                   detect.eager(c), want).items():
+            eager_diff[k] = max(v, eager_diff.get(k, 0.0))
+    launches, nms = _read_counters(), _check_nms("[graphs] main path",
+                                                model, 6)
+    per_call = {"conv1": 1, "conv1_f32": 0, "roi_align": len(_heads(model)),
+                "roi_align_backward": 0, "roi_align_backward_prep": 0}
+    if launches != {k: 6 * v for k, v in per_call.items()} or \
+            detect.replays != 2:
+        raise RuntimeError(f"[graphs] 4 eager calls and 2 replays: launches "
+                           f"{launches}, {detect.replays} replays")
+    # cuDNN restricted to its deterministic engines: the eager path repeats
+    # itself bit for bit, and the replay must equal it bit for bit.
+    with _cudnn_deterministic(torch):
+        det = make_detect_fn(model)
+        det(clips[0])                         # warm-up and capture
+        for c in clips:
+            want = det.eager(c)
+            for got in (det(c), det.eager(c)):
+                diff_d = _outputs_match(
+                    torch, "[graphs] main path, deterministic cuDNN", got,
+                    want)
+                if diff_d:
+                    raise RuntimeError(f"[graphs] with cuDNN's deterministic "
+                                       f"engines, a replay or a repeated "
+                                       f"eager call differs: {diff_d}")
+        del det, want, got
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("graphed", "graphed", "eager"):
+        fn = detect if mode == "graphed" else detect.eager
+        for i in range(GRAPH_TIMED):
+            request(fn, clips[i % 2], times[mode])
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    med = {m: (statistics.median(x for x, _ in v),
+               statistics.median(y for _, y in v)) for m, v in times.items()}
+    busy = med["graphed"][1]
+    print(f"[graphs] main path {BOX_CFG} bf16 B={b} {t}x{h}x{w} ({card}): "
+          f"graphed outputs vs eager on 2 requests: bit for bit but "
+          f"{diff or 'none'} (max |difference|; the same eager call twice: "
+          f"bit for bit but {eager_diff or 'none'}; with cuDNN's "
+          f"deterministic engines, replays and repeated eager calls equal "
+          f"bit for bit); no host sync in an "
+          f"eager call under set_sync_debug_mode(\"error"
+          f"\"); launches of 4 eager calls + 2 replays {launches}, NMS "
+          f"kernels {nms}; request s (median of {2 * GRAPH_TIMED}): eager "
+          f"{med['eager'][0]:.4f}, graphed {med['graphed'][0]:.4f} "
+          f"({med['eager'][0] / med['graphed'][0]:.2f}x); graphed request's "
+          f"CUDA-event span {busy:.4f} s, so the card idles >= "
+          f"{100 * (1 - busy / med['eager'][0]):.1f}% of an eager request "
+          f"and {100 * max(0.0, 1 - busy / med['graphed'][0]):.1f}% of a "
+          f"graphed one; first graphed call (eager warm-up + capture) "
+          f"{capture_s:.2f} s; peak memory eager {peak_eager / 2 ** 30:.2f} "
+          f"GiB allocated, graphed {held / 2 ** 30:.2f} GiB reserved after "
+          f"empty_cache (parameters, graph pool, static buffers)", flush=True)
+    out = launches
+    del model, detect, clips
+    torch.cuda.empty_cache()
+
+    # (2) the bench's infer path at B=4.
+    bcfg = bench.infer_cfg()
+    model = build_model(bcfg, device="cuda", seed=0)
+    nb, bt = 4, bcfg.VIDEO.NUM_FRAMES
+    clips = torch.randn((nb, bt, h, w, 3), device="cuda", generator=gen)
+    tubes = torch.as_tensor(make_realistic_tubes(
+        nb, bcfg.RPN.POST_NMS_TOP_N_TEST, bt, h, w)).cuda()
+    detect = make_detect_fn(model, with_proposals=True, run_rpn=True)
+    detect.eager(clips, tubes)
+    _sync_free(torch, "[graphs] bench path", detect.eager, clips, tubes)
+    detect(clips, tubes)                      # warm-up and capture
+    want = detect.eager(clips, tubes)
+    bdiff = _outputs_match(torch, "[graphs] bench path", detect(clips, tubes),
+                           want)
+    beager = _outputs_match(torch, "[graphs] bench path, eager twice",
+                            detect.eager(clips, tubes), want)
+    del want
+
+    def fetch(o):
+        read_back({k: o[k] for k in bench._OUTS if k in o})
+
+    iters = int(BENCH_ENV["BENCH_ITERS"])
+    rates = {"eager": [], "graphed": []}
+    for mode in ("graphed", "eager", "eager", "graphed"):
+        fn = detect if mode == "graphed" else detect.eager
+        dt = bench._timed(fn, (clips, tubes), iters, fetch)
+        rates[mode].append(nb * iters / dt)
+    print(f"[graphs] bench infer path (with_proposals, run_rpn) B={nb} "
+          f"{bt}x{h}x{w} ({card}): graphed outputs vs eager: bit for bit "
+          f"but {bdiff or 'none'} (eager twice: bit for bit but "
+          f"{beager or 'none'}); no host sync in an eager call; "
+          f"double-buffered clips/s "
+          f"({iters} calls, bench._timed) eager "
+          f"{[round(r, 3) for r in rates['eager']]}, graphed "
+          f"{[round(r, 3) for r in rates['graphed']]}", flush=True)
+    del model, detect, clips, tubes
+    torch.cuda.empty_cache()
+
+    # (3) the bench's stream with the entry points eager ([bench] runs it
+    # graphed in this call).
+    buf = io.StringIO()
+    with _bench_env(BENCH_ENV), contextlib.redirect_stdout(buf), \
+            _eager_entry_points():
+        bench.bench_stream("cuda")
+    line = _bench_line("[graphs] stream eager", buf.getvalue())
+    torch.cuda.empty_cache()
+    print(f"[graphs] bench stream B=1 2x{BENCH_ENV['BENCH_STREAM_FRAMES']} "
+          f"frames, entry points eager ({card}): p50 {line['value']} ms, "
+          f"p95 {line['p95_ms']} ms, {line['fps_end_to_end']} frames/s "
+          f"([bench] stream below: graphed); phase wall "
+          f"{time.perf_counter() - wall0:.1f} s", flush=True)
+    return out
 
 
 BENCH_ENV = {"BENCH_ITERS": "10",         # the bench's defaults, uncut: the
@@ -1050,6 +1480,7 @@ def _train_steps(torch, tag, cfg, n_steps, seed):
     if launches != want:
         raise RuntimeError(f"{tag}: launch counters {launches}, expected "
                            f"{want} for {n_steps} steps")
+    _check_nms(tag, model, n_steps, train=True)
     head_terms = {"box_head": {"loss_cls", "loss_bbox"},
                   "kps_head": {"loss_kps"}, "mask_head": {"loss_mask"}}
     terms = set.union({"loss_rpn_cls", "loss_rpn_bbox", "loss_total"},
@@ -2907,7 +3338,7 @@ def main() -> int:
           f"{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ["conv1", "roi_align", "diag_roialign", "hungarian"]
+    sources = ["conv1", "roi_align", "diag_roialign", "nms", "hungarian"]
     _build.build(sources)
     for name in sources:
         _build.load_library(name)
@@ -2924,9 +3355,11 @@ def main() -> int:
     phase_k3(torch, results)
     phase_backward(torch, results)
     torch.cuda.empty_cache()
+    phase_nms(torch, results)
     diag = phase_diag(torch, results)
     phase_tools(torch)
     inference = phase_slice(torch)
+    graphs = phase_graphs(torch)
     bench = phase_bench(torch)
     # With random weights (no pretrained backbone, identity frozen-BN
     # affines) the unclipped config's own BASE_LR 0.005 blows the losses up
@@ -2952,8 +3385,13 @@ def main() -> int:
                            "kernel never ran")
     launches = {k: inference[k] + training[k] + dataset[k] + surface[k]
                 + finetune[k] + multigpu[k] + surface_ops[k] + bench[k]
-                for k in training}
-    print(f"[launches] inference slice {inference}; bench {bench}; "
+                + graphs[k] for k in training}
+    for name, n in NMS_LAUNCHES.items():
+        if n == 0:
+            raise RuntimeError(f"{name}: no launch on the paths that run it")
+    print(f"[launches] inference slice {inference}; graphs {graphs}; "
+          f"NMS kernels on the serving and training paths {NMS_LAUNCHES}; "
+          f"bench {bench}; "
           f"training slice "
           f"{training}; dataset paths {dataset}; fine-tuning path "
           f"{finetune}; data-parallel runs {multigpu}; surface paths "
@@ -2991,6 +3429,15 @@ def main() -> int:
          "replaces": f"{ra}:566",
          "launches": launches["roi_align_backward_prep"],
          **results["roi_align_backward_prep"]},
+        {"name": "nms_keep", "route": "cuda",
+         "source": "detectandtrack_tpu_torch/csrc/nms.cu",
+         "replaces": "detectandtrack_tpu/ops/nms.py:88",
+         "launches": NMS_LAUNCHES["nms_keep"], **results["nms_keep"]},
+        {"name": "soft_nms_confirm", "route": "cuda",
+         "source": "detectandtrack_tpu_torch/csrc/nms.cu",
+         "replaces": "detectandtrack_tpu/ops/nms.py:176",
+         "launches": NMS_LAUNCHES["soft_nms_confirm"],
+         **results["soft_nms_confirm"]},
     ] + [{"name": f"diag_roialign_{variant}", "route": "cuda",
           "source": "detectandtrack_tpu_torch/csrc/diag_roialign.cu",
           "replaces": "tools/diag_roialign.py:140",

@@ -116,6 +116,23 @@ def _bucket() -> Tuple[int, int]:
     return bh, bw
 
 
+def infer_cfg():
+    """The infer mode's configuration, from the BENCH_* environment."""
+    body = os.environ.get("BENCH_BODY", "resnet50")
+    t = int(os.environ.get("BENCH_T", "8"))
+    bh, bw = _bucket()
+    kps_budget = int(os.environ.get("BENCH_KPS_BUDGET", "0"))
+    return load_cfg(opts=[
+        "MODEL.CONV_BODY", body,
+        "VIDEO.VIDEO_ON", t > 1,
+        "VIDEO.NUM_FRAMES", t,
+        "VIDEO.TIME_KERNEL_DIM", "[3, 3, 3, 3, 1]",
+        "TEST.SHAPE_BUCKETS", f"[[{bh}, {bw}]]",
+        "TEST.SCORE_THRESH", 0.0,
+        "KRCNN.MAX_ROIS_PER_IM", kps_budget,
+    ])
+
+
 def bench_infer(device="cuda") -> Dict:
     """Inference clips/s with MFU at B=BENCH_BATCH on realistic RoIs, and
     on the model's own (degenerate) proposals → the printed line."""
@@ -126,18 +143,9 @@ def bench_infer(device="cuda") -> Dict:
     batch = int(os.environ.get("BENCH_BATCH", "4"))
     iters = int(os.environ.get("BENCH_ITERS", "10"))
     body = os.environ.get("BENCH_BODY", "resnet50")
-    t = int(os.environ.get("BENCH_T", "8"))
     bh, bw = _bucket()
-    kps_budget = int(os.environ.get("BENCH_KPS_BUDGET", "0"))
-    cfg = load_cfg(opts=[
-        "MODEL.CONV_BODY", body,
-        "VIDEO.VIDEO_ON", t > 1,
-        "VIDEO.NUM_FRAMES", t,
-        "VIDEO.TIME_KERNEL_DIM", "[3, 3, 3, 3, 1]",
-        "TEST.SHAPE_BUCKETS", f"[[{bh}, {bw}]]",
-        "TEST.SCORE_THRESH", 0.0,
-        "KRCNN.MAX_ROIS_PER_IM", kps_budget,
-    ])
+    cfg = infer_cfg()
+    t = cfg.VIDEO.NUM_FRAMES
     device = _check_device(device)
     model = build_model(cfg, device=device, seed=0)
 

@@ -24,6 +24,7 @@ from ..models.detector import GeneralizedRCNN
 from ..parallel.mesh import Mesh, gather_batch, replicate, shard_rows
 from ..utils.io import load_object
 from .augment import merge_multiscale_detections, rescale_detections
+from .graphs import graphed
 
 
 def make_detect_fn(model: GeneralizedRCNN, with_proposals: bool = False,
@@ -39,6 +40,12 @@ def make_detect_fn(model: GeneralizedRCNN, with_proposals: bool = False,
     runs the model's flip test-time augmentation (`detect_tta`). Masks come
     back as the sigmoid of the last class channel (the person), computed on
     the device: (B, D, T, 2P, 2P).
+
+    On a CUDA model the function is captured per input signature as a CUDA
+    graph (`engine/graphs.py`, the port's `jax.jit`): the first call of a
+    shape runs eagerly and captures, every later one replays the graph and
+    returns fresh copies of its outputs. `.eager` is the uncaptured
+    function. On the CPU the function is eager.
     """
 
     def detect(clips: torch.Tensor, tubes: Optional[torch.Tensor] = None,
@@ -53,7 +60,14 @@ def make_detect_fn(model: GeneralizedRCNN, with_proposals: bool = False,
                 out = model(clips)
             return detect_outputs(out)
 
-    return detect
+    return _on_device(model, detect, "detect")
+
+
+def _on_device(model: GeneralizedRCNN, fn: Callable, name: str) -> Callable:
+    """`fn` captured per signature on a CUDA model; as it is on the CPU."""
+    if next(model.parameters()).device.type == "cuda":
+        return graphed(fn, name)
+    return fn
 
 
 def detect_outputs(out: Dict) -> Dict[str, torch.Tensor]:
@@ -94,7 +108,8 @@ def make_kps_aug_fns(model: GeneralizedRCNN, flip: bool
     coordinates; with the mirrored pass averaged in when `flip`) →
     (B, M, Tk, S, S, K); `decode_fn(hms (S, B, M, Tk, S, S, K), boxes)`
     averages the stacked scales on the device and decodes once at the boxes
-    in original coordinates → (B, D, T, K, 4)."""
+    in original coordinates → (B, D, T, K, 4). Each is captured per input
+    signature on a CUDA model, as `make_detect_fn` is."""
 
     def hm_fn(clips: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -105,7 +120,8 @@ def make_kps_aug_fns(model: GeneralizedRCNN, flip: bool
             return model.decode_keypoints_from_heatmaps(hms.mean(dim=0),
                                                         boxes)
 
-    return hm_fn, decode_fn
+    return (_on_device(model, hm_fn, "kps_aug hm_fn"),
+            _on_device(model, decode_fn, "kps_aug decode_fn"))
 
 
 def window_proposals(db: Dict, dataset: PosetrackDataset, vid: str,

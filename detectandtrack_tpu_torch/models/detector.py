@@ -28,7 +28,7 @@ from ..kernels.roi_align import (assign_fpn_levels,
                                  roi_align_multilevel_autograd)
 from ..ops import boxes as box_ops
 from ..ops.anchors import shifted_anchor_field
-from ..ops.keypoints import flip_permutation, heatmaps_to_keypoints
+from ..ops.keypoints import flip_permutation_tensor, heatmaps_to_keypoints
 from ..ops.nms import nms_fixed, soft_nms_fixed
 from .backbone import BASIC_ARCHS, backbone_from_cfg, compute_dtype
 from .fpn import FPN
@@ -130,6 +130,23 @@ class GeneralizedRCNN(nn.Module):
 
     # -- RPN + proposals --------------------------------------------------
 
+    def _anchor_field(self, li: int, stride: int, fmap: torch.Tensor
+                      ) -> torch.Tensor:
+        """Level li's shifted anchor field (H·W·A, 4) for `fmap`'s
+        (H, W), on its device: built on the host and uploaded once per
+        (level, H, W, device), then kept on the device (a constant of the
+        captured graph, as under JAX's jit). A plain dict, not a buffer:
+        `state_dict` and the parameter bridge do not see it."""
+        h, w = fmap.shape[2], fmap.shape[3]
+        key = (li, h, w, fmap.device)
+        cache = self.__dict__.setdefault("_anchor_fields", {})
+        if key not in cache:
+            with torch.inference_mode(False):
+                cache[key] = torch.as_tensor(shifted_anchor_field(
+                    anchor_cell_for_level(self.cfg, li, stride), stride, h,
+                    w), device=fmap.device)
+        return cache[key]
+
     def propose(self, pyramid, image_hw: Tuple[float, float],
                 train: bool = False):
         """→ (tubes (B, K, 4T), scores (B, K), valid (B, K)) and the raw
@@ -150,9 +167,7 @@ class GeneralizedRCNN(nn.Module):
             logits, deltas = self.rpn_head(fmap)
             raw.append((logits, deltas))
             scores, deltas = flatten_rpn_outputs(logits, deltas, t)
-            field = torch.as_tensor(shifted_anchor_field(
-                anchor_cell_for_level(cfg, li, stride), stride,
-                fmap.shape[2], fmap.shape[3]), device=fmap.device)
+            field = self._anchor_field(li, stride, fmap)
             k_pre = min(pre, scores.shape[1])
             ts, ti = topk_stable(scores, k_pre)                  # (B, k_pre)
             tubes = decode_tube_proposals(field[ti], _gather_rows(deltas, ti),
@@ -343,10 +358,9 @@ class GeneralizedRCNN(nn.Module):
                 pooled = pooled[:, t // 2:t // 2 + 1]
             hm = self.kps_head(pooled)
             if flipped:
-                perm = torch.as_tensor(
-                    flip_permutation("posetrack" if cfg.KRCNN.NUM_KEYPOINTS
-                                     == 15 else "coco"),
-                    device=hm.device)
+                perm = flip_permutation_tensor(
+                    "posetrack" if cfg.KRCNN.NUM_KEYPOINTS == 15 else "coco",
+                    hm.device)
                 hm = hm.flip(3)[..., perm]
             hm_sum = hm if hm_sum is None else hm_sum + hm
         return hm_sum / float(len(passes))

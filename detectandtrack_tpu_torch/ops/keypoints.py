@@ -5,7 +5,7 @@ detectandtrack_tpu/ops/keypoints.py, whose module imports JAX)."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -138,11 +138,26 @@ def flip_permutation(dataset: str = "posetrack") -> np.ndarray:
     return perm
 
 
+_FLIP_PERMS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def flip_permutation_tensor(dataset: str, device) -> torch.Tensor:
+    """`flip_permutation(dataset)` as an int64 tensor on `device`, uploaded
+    once per (dataset, device) and kept: a forward that flips makes no
+    upload after its first call."""
+    key = (dataset, torch.device(device))
+    if key not in _FLIP_PERMS:
+        with torch.inference_mode(False):
+            _FLIP_PERMS[key] = torch.from_numpy(
+                flip_permutation(dataset)).to(device)
+    return _FLIP_PERMS[key]
+
+
 def flip_heatmaps(heatmaps: torch.Tensor,
                   dataset: str = "posetrack") -> torch.Tensor:
     """Flip (..., K, H, W) heatmaps: swap the left/right joint channels by
     `flip_permutation` and mirror W."""
-    perm = torch.from_numpy(flip_permutation(dataset)).to(heatmaps.device)
+    perm = flip_permutation_tensor(dataset, heatmaps.device)
     return heatmaps.index_select(-3, perm).flip(-1)
 
 

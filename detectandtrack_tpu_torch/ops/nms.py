@@ -7,11 +7,13 @@ package's. `soft_nms_scan` is the sequential pick-and-decay loop, the plain
 oracle `soft_nms_fixed` is held to; no model path runs it. Greedy NMS:
 stable score sort, the strictly upper-triangular
 suppression matrix S[j, i] = "j outranks i and IoU > thresh", and the
-Jacobi fixpoint
-kept ← valid & ¬any_j(S[j, i] & kept[j]), which converges to exactly the
-greedy result. Soft-NMS: the bulk-confirmation fixpoint of the JAX package
-(see `soft_nms_fixed`). Leading dims are independent lanes (the JAX model
-vmaps over them).
+keep mask kept = valid & ¬any_j(S[j, i] & kept[j]) (the unique solution
+that the JAX package's Jacobi fixpoint converges to), swept in score
+order by `kernels/nms.py::nms_keep`. Soft-NMS: the bulk-confirmation
+rounds of the JAX package (see `soft_nms_fixed`), run by
+`kernels/nms.py::soft_nms_confirm`. Both loops stay on the device: no
+host decision ends them. Leading dims are independent lanes (the JAX
+model vmaps over them).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.nms import nms_keep, soft_nms_confirm
 from .boxes import bbox_overlaps
 
 _NEG_INF = -1e10
@@ -54,12 +57,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
 
     rank = torch.arange(n, device=boxes.device)
     supp = (bbox_overlaps(b, b) > iou_thresh) & (rank[:, None] < rank[None, :])
-    kept = valid_sorted
-    for _ in range(n):
-        new = valid_sorted & ~(supp & kept[..., :, None]).any(dim=-2)
-        if torch.equal(new, kept):
-            break
-        kept = new
+    kept = nms_keep(supp, valid_sorted)
 
     # First `max_out` survivors in score order: scatter each survivor to its
     # rank; everything else lands in a discard slot.
@@ -102,7 +100,8 @@ def soft_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
     order, so each round confirms, at its provisional score prov(i) = s_i ·
     Π decays from confirmed overlappers, every box that no unconfirmed
     overlapper outranks on (prov, -index); the loop ends when a round
-    confirms nothing.
+    confirms nothing (`kernels/nms.py::soft_nms_confirm`, whose product
+    is taken in a fixed order on either device).
 
     Returns (keep_idx, keep_mask, new_scores), each (..., max_out): int64
     indices in descending decayed-score order (0 where masked), the mask of
@@ -120,23 +119,7 @@ def soft_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
         dmat = torch.exp(-(iou * iou) / sigma)
     overlaps = (dmat < 1.0) & ~torch.eye(n, dtype=torch.bool, device=dev)
     alive = scores > _NEG_INF / 2
-    rank = torch.arange(n, device=dev)
-    earlier = rank[:, None] < rank[None, :]
-    confirmed = torch.zeros_like(alive)
-    final = torch.full_like(scores, _NEG_INF)
-    while True:
-        decays = torch.where(confirmed[..., :, None] & overlaps, dmat,
-                             torch.ones_like(dmat))
-        prov = scores * decays.prod(dim=-2)
-        pj, pi = prov[..., :, None], prov[..., None, :]
-        beats = (pj > pi) | ((pj == pi) & earlier)
-        outranked = ((~confirmed & alive)[..., :, None] & overlaps
-                     & beats).any(dim=-2)
-        newly = ~confirmed & alive & ~outranked
-        if not bool(newly.any()):
-            break
-        final = torch.where(newly, prov, final)
-        confirmed = confirmed | newly
+    final = soft_nms_confirm(scores, dmat.float(), overlaps, alive, _NEG_INF)
 
     k = min(n, max_out)
     order = torch.argsort(-final, dim=-1, stable=True)[..., :k]

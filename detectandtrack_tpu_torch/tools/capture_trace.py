@@ -2,7 +2,7 @@
 
     python3 -m detectandtrack_tpu_torch.tools.capture_trace [HxW] [batch]
         [outdir] [mix] [--device cuda|cpu] [--iters 3]
-        [--warmup 2] [--opts KEY VALUE ...]
+        [--warmup 2] [--eager] [--opts KEY VALUE ...]
 
 Port of tools/capture_trace.py. It builds the main configuration
 (configs/video/3d_R50_T8_tubes_kps.yaml: 3D R-50, T=8, bf16) with seeded
@@ -14,7 +14,12 @@ out_trace/trace_<HxW>_b<batch>_<mix>). `mix` is "realistic" (default:
 `detect_with_proposals(run_rpn=True)`, the RPN and its NMS kept running)
 or "degenerate" (the model's own random-weight RPN proposals).
 
-The traced requests run inside `record_function` scopes named after the
+On a CUDA model the requests go through `make_detect_fn`'s captured
+function (`engine/graphs.py`): the traced requests are graph replays, one
+device program each, and the trace shows the card's kernels and idle gaps
+but no host op or stage scope. `--eager` traces the uncaptured function
+instead (`.eager`), as a request ran before the port captured it: the
+traced requests then run inside `record_function` scopes named after the
 model's stages: backbone, fpn, rpn, nms, roi_transform, heads/<head>,
 decode. They map each kernel back to the code that launched it, the role
 tools/dump_hlo.py played for XLA (that tool has no counterpart here: there
@@ -26,10 +31,11 @@ Beside the trace it writes work.json: per CUDA kernel group, the FLOP and
 bytes of one request, which tools/conv_roofline.py turns into a roofline
 table. The hand-written kernels' work comes from `utils/roofline` (conv1
 and K1 at the shapes and rois of the last warm-up request, which the
-traced requests repeat); cuDNN's and cuBLAS's from torch's op counters
-(`with_flops`, `record_shapes`): convolutions from their shapes, matrix
-products from torch's count, each op's work given to the longest kernel it
-launched.
+traced requests repeat; that request runs uncaptured); cuDNN's and
+cuBLAS's from torch's op counters (`with_flops`, `record_shapes`):
+convolutions from their shapes, matrix products from torch's count, each
+op's work given to the longest kernel it launched (with `--eager` only: a
+replay shows the counters no op).
 
 Keep this out of chip_smoke.py: a profiling run on the card once left the
 machine unresponsive after it exited. Run it by hand, once, as its own
@@ -223,6 +229,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--eager", action="store_true",
+                    help="trace the uncaptured entry point, stage by stage")
     ap.add_argument("--opts", nargs="*", default=[],
                     help="config overrides, KEY VALUE ...")
     args = ap.parse_args(argv)
@@ -243,20 +251,21 @@ def main(argv=None):
         tubes = torch.as_tensor(make_realistic_tubes(
             args.batch, cfg.RPN.POST_NMS_TOP_N_TEST, t, bh, bw)).to(dev)
         detect = make_detect_fn(model, with_proposals=True, run_rpn=True)
-
-        def request():
-            return detect(clips, tubes)
+        inputs = (clips, tubes)
     else:
         detect = make_detect_fn(model)
+        inputs = (clips,)
+    eager = getattr(detect, "eager", detect)
+    traced = eager if args.eager else detect
 
-        def request():
-            return detect(clips)
+    def request():
+        return traced(*inputs)
 
     hand: Dict[str, roofline.Work] = {}
     for i in range(args.warmup):
         if i == args.warmup - 1:
             with hand_kernel_work(hand):
-                force_outputs(request())
+                force_outputs(eager(*inputs))
         else:
             force_outputs(request())
     with trace(outdir, device=dev, record_shapes=True,
@@ -272,6 +281,7 @@ def main(argv=None):
     kernels.update({k: {"flops": w.flops, "bytes": w.n_bytes, "kind": w.kind,
                         "source": "utils/roofline"} for k, w in hand.items()})
     doc = {"iters": args.iters, "config": MAIN_CFG, "opts": args.opts,
+           "captured": traced is not eager,
            "bucket": args.bucket, "batch": args.batch, "mix": args.mix,
            "device": (torch.cuda.get_device_name(0) if dev == "cuda"
                       else "cpu"),

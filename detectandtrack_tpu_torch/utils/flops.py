@@ -46,7 +46,10 @@ _ACTIVE: List[_Count] = []
 
 def count_flops(fn: Callable, *args, **kwargs) -> float:
     """FLOPs of one call `fn(*args, **kwargs)` (its result is dropped);
-    see the module docstring for what counts. One count at a time."""
+    see the module docstring for what counts. One count at a time. A
+    captured function (`engine/graphs.py`) is counted through its `.eager`
+    function: a graph replay runs no op the counter sees."""
+    fn = getattr(fn, "eager", fn)
     if _ACTIVE:
         raise RuntimeError("count_flops: a count is already in progress")
     count = _Count(FlopCounterMode(display=False))

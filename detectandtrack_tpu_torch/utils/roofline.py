@@ -166,3 +166,21 @@ def diag_work(patch_cells: int, n: int, p: int, c: int,
         return Work(n_bytes, n * p * p * c)
     return Work(n_bytes, n * (2 * p * 64 * 64 * c + 2 * p * 64 * p * c),
                 "bf16")
+
+
+def nms_keep_work(lanes: int, n: int, kept: int) -> Work:
+    """Greedy NMS's keep sweep over `lanes` lanes of n boxes: the (n, n)
+    suppression matrix (bytes) and the validity read once, the keep mask
+    written once; each of the `kept` boxes ORs its row's ceil(n/64)
+    words into the removed mask."""
+    return Work(lanes * n * (n + 2), kept * ((n + 63) // 64), "f32")
+
+
+def soft_nms_confirm_work(lanes: int, n: int, rounds: int) -> Work:
+    """Soft-NMS's confirmation over `lanes` lanes of n boxes: scores,
+    decays (f32), overlaps and alive read once, final scores written once;
+    each of the `rounds` rounds multiplies a decay and compares an outrank
+    for every (j, i) pair."""
+    return Work(lanes * n * (5 * n + 9), 2.0 * rounds * lanes * n * n,
+                "f32")
+

@@ -586,3 +586,69 @@ def test_inflated_conv1_equals_2d_conv1_through_k2(cuda, mode):
     ref = y1.expand(1, 6, *y1.shape[2:]).float()
     assert (y3[:, 1:7].float() - ref).abs().max().item() <= _tol(
         ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 1000, 2100])
+def test_nms_keep_kernel_matches_plain(cuda, n):
+    from detectandtrack_tpu_torch.kernels import nms as kn
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    supp = torch.rand((3, n, n), device=cuda, generator=gen) > 0.995
+    supp = supp & torch.ones((n, n), dtype=torch.bool, device=cuda).triu(1)
+    valid = torch.rand((3, n), device=cuda, generator=gen) > 0.1
+    before = kn.nms_keep.launches
+    got = kn.nms_keep(supp, valid)
+    assert kn.nms_keep.launches == before + 1
+    assert torch.equal(got, kn.nms_keep_reference(supp, valid))
+
+
+@pytest.mark.parametrize("method", ["linear", "gaussian"])
+@pytest.mark.parametrize("n", [1, 40, 300, 700])
+def test_soft_nms_confirm_kernel_matches_plain(cuda, method, n):
+    from detectandtrack_tpu_torch.kernels import nms as kn
+    from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    xy = torch.rand((2, n, 2), device=cuda, generator=gen) * 200
+    wh = torch.rand((2, n, 2), device=cuda, generator=gen) * 60 + 4
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = torch.rand((2, n), device=cuda, generator=gen)
+    iou = bbox_overlaps(boxes, boxes)
+    dmat = (torch.where(iou > 0.3, 1.0 - iou, torch.ones_like(iou))
+            if method == "linear" else torch.exp(-(iou * iou) / 0.5))
+    overlaps = (dmat < 1.0) & ~torch.eye(n, dtype=torch.bool, device=cuda)
+    alive = torch.rand((2, n), device=cuda, generator=gen) > 0.2
+    before = kn.soft_nms_confirm.launches
+    got = kn.soft_nms_confirm(scores, dmat, overlaps, alive, -1e10)
+    assert kn.soft_nms_confirm.launches == before + 1
+    ref = kn.soft_nms_confirm_reference(scores, dmat, overlaps, alive, -1e10)
+    assert torch.equal(got > -5e9, ref > -5e9)
+    assert (got - ref).abs().max().item() <= 1e-6
+
+
+def test_graphed_detect_equals_eager_and_counts_replays(cuda):
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.graphs import GraphedFunction
+    from detectandtrack_tpu_torch.engine.inference import make_detect_fn
+    from detectandtrack_tpu_torch.kernels import nms as kn
+    from detectandtrack_tpu_torch.models.detector import build_model
+    cfg = load_cfg(opts=[
+        "MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
+        "RESNETS.WIDTH_PER_GROUP", 8, "FPN.DIM", 32,
+        "FAST_RCNN.MLP_HEAD_DIM", 64, "VIDEO.VIDEO_ON", True,
+        "VIDEO.NUM_FRAMES", 2, "RPN.PRE_NMS_TOP_N_TEST", 50,
+        "RPN.POST_NMS_TOP_N_TEST", 16, "TEST.DETECTIONS_PER_IM", 4,
+        "TEST.SCORE_THRESH", -1.0, "TEST.SHAPE_BUCKETS", "[[64, 96]]",
+        "KRCNN.NUM_STACKED_CONVS", 1, "KRCNN.CONV_HEAD_DIM", 16])
+    model = build_model(cfg, device=cuda, seed=0)
+    detect = make_detect_fn(model)
+    assert isinstance(detect, GraphedFunction)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    clips = [torch.randn((1, 2, 64, 96, 3), device=cuda, generator=gen)
+             for _ in range(3)]
+    detect(clips[0])
+    before = kn.nms_keep.launches
+    outs = [detect(c) for c in clips[1:]]
+    assert detect.replays == 2 and kn.nms_keep.launches == before + 4
+    for c, out in zip(clips[1:], outs):
+        want = detect.eager(c)
+        for k in want:
+            assert torch.equal(out[k], want[k]), k

@@ -232,6 +232,27 @@ def test_capture_trace_tool_on_cpu(tmp_path):
     assert detector.nms_fixed is nms_fixed
 
 
+def test_capture_trace_eager_flag_on_cpu(tmp_path):
+    """`--eager` traces the uncaptured entry point; on the CPU both modes
+    run it (nothing is captured there), so work.json says so either way."""
+    opts = ["--device", "cpu", "--iters", "1", "--warmup", "1", "--opts",
+            "MODEL.CONV_BODY", "resnet18", "MODEL.COMPUTE_DTYPE", "float32",
+            "RESNETS.WIDTH_PER_GROUP", "8", "FPN.DIM", "32",
+            "FAST_RCNN.MLP_HEAD_DIM", "64", "VIDEO.NUM_FRAMES", "2",
+            "VIDEO.TIME_KERNEL_DIM", "[3, 1, 1, 1, 1]",
+            "RPN.PRE_NMS_TOP_N_TEST", "50", "RPN.POST_NMS_TOP_N_TEST", "16",
+            "TEST.DETECTIONS_PER_IM", "4", "KRCNN.NUM_STACKED_CONVS", "1",
+            "KRCNN.CONV_HEAD_DIM", "16"]
+    out = capture_trace.main(["64x96", "1", str(tmp_path), "degenerate",
+                              "--eager"] + opts)
+    with open(os.path.join(out, "work.json")) as f:
+        work = json.load(f)
+    assert work["captured"] is False and work["mix"] == "degenerate"
+    scopes = {e["name"] for e in trace_summary.load_trace(out)
+              if e.get("cat") == "user_annotation"}
+    assert {"backbone", "nms", "decode"} <= scopes
+
+
 class _Ev:
     """The fields of torch.profiler's FunctionEvent that torch_op_work
     reads."""
