@@ -602,100 +602,68 @@ def phase_backward(torch, results):
 DIAG_N = 4800               # the diagnostic tool's own pairs
 
 
-def _greedy_lanes(torch, lanes, n, chain, seed, h=800, w=1344):
-    """(boxes (lanes, n, 4), scores (lanes, n)) on the card: boxes spread
-    over an h x w image with random sizes, or a long suppression chain
-    (12 px boxes 3 px apart in score order: each suppresses only the
-    next at IoU 0.5, N dependent decisions)."""
-    rng = np.random.default_rng(seed)
-    if chain:
-        x1 = np.arange(n, dtype=np.float32) * 3.0
-        one = np.stack([x1, np.zeros(n, np.float32), x1 + 11.0,
-                        np.full(n, 11.0, np.float32)], 1)
-        boxes = np.broadcast_to(one, (lanes, n, 4)).copy()
-        scores = np.broadcast_to(np.linspace(1.0, 0.5, n, dtype=np.float32),
-                                 (lanes, n)).copy()
-    else:
-        x1, y1 = rng.uniform(0, w - 64, (lanes, n)), rng.uniform(
-            0, h - 64, (lanes, n))
-        bw, bh = rng.uniform(16, 320, (lanes, n)), rng.uniform(
-            16, 320, (lanes, n))
-        boxes = np.stack([x1, y1, np.minimum(x1 + bw, w - 1),
-                          np.minimum(y1 + bh, h - 1)], -1).astype(np.float32)
-        scores = rng.uniform(0, 1, (lanes, n)).astype(np.float32)
-    return (torch.as_tensor(boxes).cuda(), torch.as_tensor(scores).cuda())
-
-
-def _keep_inputs(torch, boxes, scores, thresh):
-    """`ops/nms.py::nms_fixed`'s suppression matrix and sorted validity."""
-    from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
-    n = boxes.shape[-2]
-    order = torch.argsort(-scores, dim=-1, stable=True)
-    b = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
-    rank = torch.arange(n, device=boxes.device)
-    supp = (bbox_overlaps(b, b) > thresh) & (rank[:, None] < rank[None, :])
-    valid = torch.ones_like(scores, dtype=torch.bool)
-    valid[..., ::7] = False            # some invalid rows
-    return supp, valid
-
-
-def _soft_inputs(torch, boxes, scores, method, sigma=0.5, thresh=0.3):
-    """`ops/nms.py::soft_nms_fixed`'s inputs to the confirmation loop."""
-    from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
-    n = boxes.shape[-2]
-    iou = bbox_overlaps(boxes, boxes)
-    if method == "linear":
-        dmat = torch.where(iou > thresh, 1.0 - iou, torch.ones_like(iou))
-    else:
-        dmat = torch.exp(-(iou * iou) / sigma)
-    overlaps = (dmat < 1.0) & ~torch.eye(n, dtype=torch.bool,
-                                         device=boxes.device)
-    alive = torch.ones_like(scores, dtype=torch.bool)
-    alive[..., ::9] = False
-    return scores, dmat, overlaps, alive
-
-
 def _soft_rounds(torch, scores, dmat, overlaps, alive):
     """The confirmation rounds these inputs need (the last confirms
-    nothing): the data-dependent trip count of soft_nms_confirm's loop."""
+    nothing: the data-dependent trip count of soft_nms_confirm's loop),
+    and their touched work, round by round → (rounds, decays, compares,
+    multiplies): the decays the rounds multiply in (j newly confirmed, i an
+    alive overlapper still unconfirmed: dmat[j, i] read once each); the
+    outrank tests of each unconfirmed alive box against its unconfirmed
+    alive overlappers; for each (chunk, box still unconfirmed) that a newly
+    confirmed overlapper changes, the chunk's PROD_CHUNK multiplications,
+    and for each such box its prov's (chunks + 1)."""
+    from detectandtrack_tpu_torch.kernels.nms import (PROD_CHUNK,
+                                                      soft_nms_round)
     n = scores.shape[-1]
-    rank = torch.arange(n, device=scores.device)
-    earlier = rank[:, None] < rank[None, :]
+    nc = -(-n // PROD_CHUNK)
     confirmed = torch.zeros_like(alive)
-    rounds = 0
+    rounds = decays = compares = multiplies = 0
     while True:
         rounds += 1
-        decays = torch.where(confirmed[..., :, None] & overlaps, dmat,
-                             torch.ones_like(dmat))
-        prov = scores * decays.prod(dim=-2)
-        pj, pi = prov[..., :, None], prov[..., None, :]
-        beats = (pj > pi) | ((pj == pi) & earlier)
-        outranked = ((~confirmed & alive)[..., :, None] & overlaps
-                     & beats).any(dim=-2)
-        newly = ~confirmed & alive & ~outranked
+        ua = ~confirmed & alive
+        compares += int((ua[..., :, None] & overlaps & ua[..., None, :]).sum())
+        _, newly = soft_nms_round(scores, dmat, overlaps, alive, confirmed)
         if not bool(newly.any()):
-            return rounds
+            return rounds, decays, compares, multiplies
         confirmed = confirmed | newly
+        touched = (newly[..., :, None] & overlaps
+                   & (~confirmed & alive)[..., None, :])
+        decays += int(touched.sum())
+        hit = torch.nn.functional.pad(touched, (0, 0, 0, nc * PROD_CHUNK - n))
+        hit = hit.reshape(hit.shape[:-2] + (nc, PROD_CHUNK, n)).any(-2)
+        multiplies += (int(hit.sum()) * PROD_CHUNK
+                       + int(hit.any(-2).sum()) * (nc + 1))
 
 
 def phase_nms(torch, results):
     """The NMS loop kernels against their plain versions at the main
-    path's shapes: nms_keep on the RPN's 5 x B = 10 lanes of N=1000 and
-    the final NMS's B=2 lanes of N=300 (IoU 0.7 and 0.5), random boxes
-    and a long suppression chain, bit for bit; soft_nms_confirm on the
-    soft-NMS config's B=2 lanes of N=300, linear and gaussian, random
-    boxes and a chain, within 1e-6 (bit equality reported). Each with its
-    time, its plain version's and its bound."""
+    path's shapes, all bit for bit: nms_keep from the sorted boxes on the
+    RPN's 5 x B = 10 lanes of N=1000, the final NMS's B=2 lanes of N=300
+    and the training step's 5 lanes of N=2000 (IoU 0.7, 0.5, 0.7), random
+    boxes and a long suppression chain; soft_nms_confirm on the soft-NMS
+    config's B=2 lanes of N=300, linear and gaussian, random boxes and a
+    chain. Each with its time (CUDA events around 10 eager calls, the
+    kernels line's `ms` as for every kernel; and one call's device time
+    inside a CUDA graph of 20, its `graph_ms`), its plain version's and its
+    bound; soft-NMS also with its rounds and time a round. At the RPN's
+    shape also the torch passes that nms_keep's mask kernel replaced
+    (bbox_overlaps, threshold, triangle), timed alike, and the rise of
+    nms_fixed's peak memory, which must stay below one (L, N, N) bool
+    tensor."""
     from detectandtrack_tpu_torch.kernels import nms as kn
+    from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
+    from detectandtrack_tpu_torch.ops.nms import nms_fixed
+    from detectandtrack_tpu_torch.tools.nms_ab import (
+        KEEP_SHAPES, SOFT_LANES, SOFT_N, graph_ms, greedy_lanes,
+        keep_inputs, soft_inputs)
     from detectandtrack_tpu_torch.utils import roofline
 
-    for label, lanes, n, thresh in (("RPN", 10, 1000, 0.7),
-                                    ("final", 2, 300, 0.5)):
+    for label, lanes, n, thresh in KEEP_SHAPES:
         for chain in (False, True):
-            boxes, scores = _greedy_lanes(torch, lanes, n, chain, seed=n)
-            supp, valid = _keep_inputs(torch, boxes, scores, thresh)
-            got = kn.nms_keep(supp, valid)
-            ref = kn.nms_keep_reference(supp, valid)
+            boxes, scores = greedy_lanes(lanes, n, chain, seed=n)
+            b, valid = keep_inputs(boxes, scores)
+            got = kn.nms_keep(b, valid, thresh)
+            ref = kn.nms_keep_reference(b, valid, thresh)
             name = (f"nms_keep {label} {lanes} lanes N={n} "
                     f"{'chain' if chain else 'random'}")
             if not torch.equal(got, ref):
@@ -703,50 +671,78 @@ def phase_nms(torch, results):
                 raise RuntimeError(f"{name}: differs from its plain version "
                                    f"at {bad}")
             kept = int(ref.sum())
-            ms = _time_ms(torch, lambda: kn.nms_keep(supp, valid))
+            del got, ref
+            ms = _time_ms(torch, lambda: kn.nms_keep(b, valid, thresh))
+            dev_ms = graph_ms(lambda: kn.nms_keep(b, valid, thresh))
             plain_ms = _time_ms(torch, lambda: kn.nms_keep_reference(
-                supp, valid), iters=2, warmup=1)
+                b, valid, thresh), iters=2, warmup=1)
             bound_ms, bound_by = roofline.bound(roofline.nms_keep_work(
-                lanes, n, kept))
+                lanes, n))
             print(f"[nms] {name}: equal bit for bit, {kept} kept; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
-                  f"{bound_ms:.5f} ms ({bound_by}), "
-                  f"{100 * bound_ms / ms:.2f}% of it", flush=True)
-            if label == "RPN" and not chain:
-                results["nms_keep"] = dict(
-                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                  f"{ms:.4f} ms eager, {dev_ms:.4f} ms in a graph, plain "
+                  f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of it eager, "
+                  f"{100 * bound_ms / dev_ms:.2f}% in a graph", flush=True)
+            if label != "RPN" or chain:
+                continue
+            results["nms_keep"] = dict(
+                max_abs_err=0.0, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            rank = torch.arange(n, device=b.device)
+            tri = rank[:, None] < rank[None, :]
+
+            def passes():
+                return (bbox_overlaps(b, b) > thresh) & tri
+
+            print(f"[nms] the torch passes nms_keep replaced (bbox_overlaps, "
+                  f"threshold, triangle) {label} {lanes} lanes N={n}: "
+                  f"{_time_ms(torch, passes):.4f} ms eager, "
+                  f"{graph_ms(passes):.4f} ms in a graph", flush=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            nms_fixed(boxes, scores, thresh, n)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            print(f"[nms] nms_fixed {label} {lanes} lanes N={n}: peak "
+                  f"memory rises {rise} bytes (an (L, N, N) bool tensor: "
+                  f"{lanes * n * n})", flush=True)
+            if rise >= lanes * n * n:
+                raise RuntimeError(f"nms_fixed at {lanes} x {n} allocates "
+                                   f"{rise} bytes: an (L, N, N) tensor")
     neg_inf = -1e10
     for method in ("linear", "gaussian"):
         for chain in (False, True):
-            boxes, scores = _greedy_lanes(torch, 2, 300, chain, seed=31)
-            args = _soft_inputs(torch, boxes, scores, method)
+            boxes, scores = greedy_lanes(SOFT_LANES, SOFT_N, chain, seed=31)
+            args = soft_inputs(boxes, scores, method)
             got = kn.soft_nms_confirm(*args, neg_inf)
             ref = kn.soft_nms_confirm_reference(*args, neg_inf)
-            name = (f"soft_nms_confirm {method} 2 lanes N=300 "
-                    f"{'chain' if chain else 'random'}")
-            err = (got - ref).abs().max().item()
-            same = torch.equal(got, ref)
-            if not err <= 1e-6 or not torch.equal(got > neg_inf / 2,
-                                                  ref > neg_inf / 2):
-                raise RuntimeError(f"{name}: max_abs_err {err} > 1e-6 or "
-                                   "the confirmed sets differ")
-            rounds = _soft_rounds(torch, *args)
+            name = (f"soft_nms_confirm {method} {SOFT_LANES} lanes "
+                    f"N={SOFT_N} {'chain' if chain else 'random'}")
+            if not torch.equal(got, ref):
+                err = (got - ref).abs().max().item()
+                raise RuntimeError(f"{name}: not bit for bit with its plain "
+                                   f"version (max_abs_err {err})")
+            rounds, decays, compares, multiplies = _soft_rounds(torch, *args)
             ms = _time_ms(torch, lambda: kn.soft_nms_confirm(*args, neg_inf))
+            dev_ms = graph_ms(lambda: kn.soft_nms_confirm(*args, neg_inf))
             plain_ms = _time_ms(torch, lambda: kn.soft_nms_confirm_reference(
                 *args, neg_inf), iters=1, warmup=0)
             bound_ms, bound_by = roofline.bound(
-                roofline.soft_nms_confirm_work(2, 300, rounds))
-            print(f"[nms] {name}: max_abs_err={err:.3g} (tol 1e-6; "
-                  f"{'bit for bit' if same else 'not bit for bit'}), "
-                  f"{rounds} rounds; kernel {ms:.4f} ms, plain "
+                roofline.soft_nms_confirm_work(SOFT_LANES, SOFT_N, decays,
+                                               compares, multiplies))
+            print(f"[nms] {name}: equal bit for bit, {rounds} rounds, "
+                  f"{decays} decays read; kernel {ms:.4f} ms eager, "
+                  f"{dev_ms:.4f} ms in a graph "
+                  f"({1e3 * dev_ms / rounds:.2f} us a round), plain "
                   f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms "
-                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of it",
-                  flush=True)
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of it eager, "
+                  f"{100 * bound_ms / dev_ms:.2f}% in a graph", flush=True)
             if method == "linear" and not chain:
                 results["soft_nms_confirm"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                    max_abs_err=0.0, ms=ms, graph_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=None)
 
 
 def phase_diag(torch, results):

@@ -5,11 +5,11 @@ detectandtrack_tpu/ops/nms.py).
 The host `nms_numpy` (the multi-scale TTA merge) is a copy of the JAX
 package's. `soft_nms_scan` is the sequential pick-and-decay loop, the plain
 oracle `soft_nms_fixed` is held to; no model path runs it. Greedy NMS:
-stable score sort, the strictly upper-triangular
-suppression matrix S[j, i] = "j outranks i and IoU > thresh", and the
-keep mask kept = valid & ¬any_j(S[j, i] & kept[j]) (the unique solution
-that the JAX package's Jacobi fixpoint converges to), swept in score
-order by `kernels/nms.py::nms_keep`. Soft-NMS: the bulk-confirmation
+stable score sort, then `kernels/nms.py::nms_keep` from the sorted boxes:
+with S[j, i] = "j outranks i and IoU > thresh", the keep mask kept =
+valid & ¬any_j(S[j, i] & kept[j]) (the unique solution that the JAX
+package's Jacobi fixpoint converges to), swept in score order; on the
+card S is never built as an (N, N) tensor. Soft-NMS: the bulk-confirmation
 rounds of the JAX package (see `soft_nms_fixed`), run by
 `kernels/nms.py::soft_nms_confirm`. Both loops stay on the device: no
 host decision ends them. Leading dims are independent lanes (the JAX
@@ -46,7 +46,6 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
       input in descending score order, and the mask of real survivors.
       Masked-out slots point at index 0.
     """
-    n = boxes.shape[-2]
     scores = scores.float()
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
@@ -54,10 +53,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     b = torch.gather(boxes.float(), -2,
                      order[..., None].expand(order.shape + (4,)))
     valid_sorted = torch.gather(scores, -1, order) > _NEG_INF / 2
-
-    rank = torch.arange(n, device=boxes.device)
-    supp = (bbox_overlaps(b, b) > iou_thresh) & (rank[:, None] < rank[None, :])
-    kept = nms_keep(supp, valid_sorted)
+    kept = nms_keep(b, valid_sorted, iou_thresh)
 
     # First `max_out` survivors in score order: scatter each survivor to its
     # rank; everything else lands in a discard slot.

@@ -1,15 +1,17 @@
 """Time the port's main paths of two (or more) checkouts on one card.
 
-    python3 -m detectandtrack_tpu_torch.tools.ab_paths TREE [TREE ...]
+    python3 -m detectandtrack_tpu_torch.tools.ab_paths [--cfg CFG] TREE ...
 
 Runs each checkout in its own process, in the order given (name a pair as
 parent, change, change, parent to see the drift between runs), and prints
-one JSON line per run: the median request time of the main inference path
-(configs/video/3d_R50_T8_tubes_kps.yaml, bf16, seeded random weights, B=2
-clips of 8x800x1344 through the model's own RPN; 1 warm-up, then
-`--requests`), the median step time of its training path (B=1, BASE_LR
-1e-4; 1 warm-up, then `--steps`), each as host time ending in
-`torch.cuda.synchronize()`, peak memory and the kernel launch counters.
+one JSON line per run: the median request time of the config's inference
+path (`--cfg`, default the main config configs/video/3d_R50_T8_tubes_kps.yaml;
+bf16, seeded random weights, B=2 clips of T frames at the config's first
+shape bucket through the model's own RPN, its graphed `make_detect_fn`;
+1 warm-up, then `--requests`), the median step time of its training path
+(B=1, BASE_LR 1e-4; 1 warm-up, then `--steps`), each as host time ending
+in `torch.cuda.synchronize()`, peak memory and the kernel launch counters
+(the NMS kernels' where the tree has them).
 The config and the synthetic inputs come from this checkout's own
 `core/config.py` and `utils/synthetic.py` for every tree, so all trees run
 the same model on the same inputs; each tree builds its own kernels. Needs
@@ -40,13 +42,19 @@ def _by_path(name: str, rel: str):
     return mod
 
 
+_NMS = ("nms_keep", "soft_nms_confirm")
+
+
 def _counters(tree_pkg) -> dict:
     conv1 = tree_pkg["conv1"].conv1
     ra = tree_pkg["roi_align"]
-    return {"conv1": conv1.launches,
-            "conv1_tc": getattr(conv1, "launches_tc", None),
-            "roi_align": ra.roi_align_multilevel.launches,
-            "roi_align_backward": ra.roi_align_backward.launches}
+    out = {"conv1": conv1.launches,
+           "conv1_tc": getattr(conv1, "launches_tc", None),
+           "roi_align": ra.roi_align_multilevel.launches,
+           "roi_align_backward": ra.roi_align_backward.launches}
+    if tree_pkg["nms"] is not None:
+        out.update({k: getattr(tree_pkg["nms"], k).launches for k in _NMS})
+    return out
 
 
 def _reset(tree_pkg) -> None:
@@ -56,9 +64,13 @@ def _reset(tree_pkg) -> None:
             setattr(conv1, name, 0)
     tree_pkg["roi_align"].roi_align_multilevel.launches = 0
     tree_pkg["roi_align"].roi_align_backward.launches = 0
+    if tree_pkg["nms"] is not None:
+        for k in _NMS:
+            getattr(tree_pkg["nms"], k).launches = 0
 
 
-def run_tree(tree: str, n_requests: int, n_steps: int) -> dict:
+def run_tree(tree: str, n_requests: int, n_steps: int,
+             cfg_file: str = MAIN_CFG) -> dict:
     """One checkout's main inference and training paths → timings."""
     import numpy as np
     import torch
@@ -70,11 +82,15 @@ def run_tree(tree: str, n_requests: int, n_steps: int) -> dict:
                                                         make_train_step)
     from detectandtrack_tpu_torch.kernels import conv1, roi_align
     from detectandtrack_tpu_torch.models.detector import build_model
-    pkg = {"conv1": conv1, "roi_align": roi_align}
+    try:
+        from detectandtrack_tpu_torch.kernels import nms
+    except ImportError:                  # a tree from before the NMS kernels
+        nms = None
+    pkg = {"conv1": conv1, "roi_align": roi_align, "nms": nms}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    cfg = config.load_cfg(os.path.join(_PKG, "..", MAIN_CFG))
+    cfg = config.load_cfg(os.path.join(_PKG, "..", cfg_file))
     b, t, (h, w) = 2, cfg.VIDEO.NUM_FRAMES, cfg.TEST.SHAPE_BUCKETS[0]
     model = build_model(cfg, device="cuda", seed=0)
     detect = make_detect_fn(model)
@@ -96,7 +112,7 @@ def run_tree(tree: str, n_requests: int, n_steps: int) -> dict:
     del model, detect, clips
     torch.cuda.empty_cache()
 
-    tcfg = config.load_cfg(os.path.join(_PKG, "..", MAIN_CFG),
+    tcfg = config.load_cfg(os.path.join(_PKG, "..", cfg_file),
                            opts=["SOLVER.BASE_LR", 1e-4])
     tb = tcfg.TRAIN.IMS_PER_BATCH
     tubes = synthetic.make_realistic_tubes(tb, tcfg.TRAIN.MAX_GT_PER_IM, t,
@@ -119,7 +135,7 @@ def run_tree(tree: str, n_requests: int, n_steps: int) -> dict:
         steps.append(time.perf_counter() - t0)
     if not all(bool(torch.isfinite(v)) for v in metrics.values()):
         raise RuntimeError(f"{tree}: non-finite loss {metrics}")
-    return {"tree": tree, "request_s": req,
+    return {"tree": tree, "cfg": cfg_file, "request_s": req,
             "request_median_s": statistics.median(req),
             "inference_launches": inf_launches,
             "inference_peak_gib": inf_peak / 2 ** 30,
@@ -131,19 +147,21 @@ def run_tree(tree: str, n_requests: int, n_steps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
+    ap.add_argument("--cfg", default=MAIN_CFG,
+                    help="config file, relative to the repository root")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(run_tree(args.trees[0], args.requests, args.steps)),
-              flush=True)
+        print(json.dumps(run_tree(args.trees[0], args.requests, args.steps,
+                                  args.cfg)), flush=True)
         return 0
     print(_by_path("dat_env", "utils/env.py").card_line(), flush=True)
     for tree in args.trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), os.path.abspath(tree),
-             "--child",
+             "--child", "--cfg", args.cfg,
              "--requests", str(args.requests), "--steps", str(args.steps)],
             cwd=os.path.abspath(tree), capture_output=True, text=True)
         if proc.returncode != 0:

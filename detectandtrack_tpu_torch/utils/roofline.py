@@ -168,19 +168,31 @@ def diag_work(patch_cells: int, n: int, p: int, c: int,
                 "bf16")
 
 
-def nms_keep_work(lanes: int, n: int, kept: int) -> Work:
-    """Greedy NMS's keep sweep over `lanes` lanes of n boxes: the (n, n)
-    suppression matrix (bytes) and the validity read once, the keep mask
-    written once; each of the `kept` boxes ORs its row's ceil(n/64)
-    words into the removed mask."""
-    return Work(lanes * n * (n + 2), kept * ((n + 63) // 64), "f32")
+IOU_OPS = 15       # bbox_overlaps' f32 operations a pair and the compare:
+                   # 4 max/min, 2 sub, 2 add, 2 clamp, 1 mul, 1 add,
+                   # 1 sub, 1 div, 1 compare (areas counted per box)
 
 
-def soft_nms_confirm_work(lanes: int, n: int, rounds: int) -> Work:
-    """Soft-NMS's confirmation over `lanes` lanes of n boxes: scores,
-    decays (f32), overlaps and alive read once, final scores written once;
-    each of the `rounds` rounds multiplies a decay and compares an outrank
-    for every (j, i) pair."""
-    return Work(lanes * n * (5 * n + 9), 2.0 * rounds * lanes * n * n,
+def nms_keep_work(lanes: int, n: int) -> Work:
+    """Greedy NMS from score-sorted boxes to the keep mask over `lanes`
+    lanes of n boxes: the boxes (16 bytes) and validity read once, the keep
+    mask written once; the IoU test of every earlier-later pair (IOU_OPS
+    each) and every box's area (4). The sweep's OR words are bit
+    operations on the decided boxes, not counted."""
+    return Work(lanes * n * 18, lanes * (n * (n - 1) // 2 * IOU_OPS + 4 * n),
                 "f32")
 
+
+def soft_nms_confirm_work(lanes: int, n: int, decays: int, compares: int,
+                          multiplies: int) -> Work:
+    """Soft-NMS's confirmation over `lanes` lanes of n boxes, as this run's
+    data needs it (counted by the caller, round by round): scores (f32),
+    alive and overlaps (bytes) read once, final scores written once, and of
+    dmat only the `decays` entries the rounds multiply in (4 bytes each:
+    a newly confirmed box's decay of an alive overlapper still
+    unconfirmed); `compares` outrank tests of an unconfirmed alive box
+    against its unconfirmed alive overlappers, `multiplies` decay and
+    chunk-product multiplications of the chunk products a newly confirmed
+    box changes."""
+    return Work(lanes * n * (n + 9) + 4 * decays, compares + multiplies,
+                "f32")

@@ -104,3 +104,60 @@ def soft_nms_case(name: str, rng: np.random.Generator, n: int = 40
                           np.full(n, 9.0, np.float32)], 1)
         scores = np.linspace(1.0, 0.5, n).astype(np.float32)
     return boxes, scores, valid
+
+
+GREEDY_NMS_CASES = ("random", "chain", "ties", "invalid", "nonfinite")
+
+
+def greedy_nms_case(name: str, n: int, rng: np.random.Generator
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One greedy-NMS lane (boxes (n, 4), scores (n,), valid (n,)) at IoU
+    0.5: random boxes and scores; "chain": boxes 12 px wide, 3 px apart, in
+    score order (IoU 0.6 with the next box, 1/3 with the one after, so the
+    greedy keeps every other box); "ties": quantised scores and a quarter
+    of the boxes equal to the first; "invalid": ~40% invalid rows;
+    "nonfinite": ~30% of the boxes with one coordinate NaN, +inf or -inf,
+    and an eighth of the lane copied (finite and non-finite duplicates)."""
+    x1, y1 = rng.uniform(0, 200, n), rng.uniform(0, 200, n)
+    w, h = rng.uniform(8, 60, n), rng.uniform(8, 60, n)
+    boxes = np.stack([x1, y1, x1 + w, y1 + h], 1).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    valid = np.ones(n, bool)
+    if name == "chain":
+        x1 = np.arange(n, dtype=np.float32) * 3.0
+        boxes = np.stack([x1, np.zeros(n, np.float32), x1 + 11.0,
+                          np.full(n, 11.0, np.float32)], 1)
+        scores = np.linspace(1.0, 0.5, n).astype(np.float32)
+    elif name == "ties":
+        scores = np.round(scores * 4) / 4
+        boxes[n // 4:n // 2] = boxes[0]
+    elif name == "invalid":
+        valid = rng.uniform(size=n) > 0.4
+    elif name == "nonfinite":
+        bad = rng.uniform(size=n) < 0.3
+        col = rng.integers(0, 4, n)
+        val = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), n)
+        boxes[bad, col[bad]] = val[bad]
+        boxes[n // 2:n // 2 + n // 8] = boxes[:n // 8]
+    return boxes, scores, valid
+
+
+def iou_threshold_pairs(rng: np.random.Generator, lanes: int, pairs: int,
+                        thresh: float) -> np.ndarray:
+    """Sorted boxes (lanes, 2 * pairs, 4) whose pairs (2 k, 2 k + 1) have an
+    IoU within a few f32 ulps of `thresh` (0 < thresh < 1): two w x h boxes
+    (whole pixels), the second shifted right by dx with (w - dx) / (w + dx)
+    = thresh in exact arithmetic, dx then moved by up to 4 of its ulps.
+    Pairs are stacked 400 px apart in y (h <= 300), so no box overlaps
+    another pair's, and every coordinate but the shifted ones is exact."""
+    w = rng.integers(20, 301, (lanes, pairs)).astype(np.float32)
+    h = rng.integers(20, 301, (lanes, pairs)).astype(np.float32)
+    dx = (w.astype(np.float64) * (1 - thresh) / (1 + thresh)).astype(
+        np.float32)
+    dx = dx + rng.integers(-4, 5, (lanes, pairs)) * np.spacing(dx)
+    zero = np.zeros_like(w)
+    y0 = (np.arange(pairs, dtype=np.float32) * 400.0)[None, :] + zero
+    a = np.stack([zero, y0, w - 1, y0 + h - 1], -1)
+    b = np.stack([dx, y0, dx + w - 1, y0 + h - 1], -1)
+    return np.stack([a, b], 2).reshape(lanes, 2 * pairs, 4).astype(
+        np.float32)

@@ -588,40 +588,94 @@ def test_inflated_conv1_equals_2d_conv1_through_k2(cuda, mode):
         ref, torch.bfloat16)
 
 
-@pytest.mark.parametrize("n", [1, 63, 65, 1000, 2100])
-def test_nms_keep_kernel_matches_plain(cuda, n):
+@pytest.mark.parametrize("case", ["random", "chain", "ties", "nonfinite"])
+@pytest.mark.parametrize("n", [1, 63, 65, 1000, 2100, 2200, 4200])
+def test_nms_keep_kernel_matches_plain(cuda, n, case):
+    """Score-sorted boxes → keep mask, bit for bit. Past 32 words a row
+    (N > 2048) a column's rows come in runs of 32 pieces: at 2100 the
+    second run holds only the diagonal piece; at 2200 (35 words) it also
+    ORs pieces 32-33 (kept bits shifted by 32); at 4200 (66 words) the
+    kept bits of rows past 4096 sit in a second group of 64 words."""
     from detectandtrack_tpu_torch.kernels import nms as kn
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    supp = torch.rand((3, n, n), device=cuda, generator=gen) > 0.995
-    supp = supp & torch.ones((n, n), dtype=torch.bool, device=cuda).triu(1)
-    valid = torch.rand((3, n), device=cuda, generator=gen) > 0.1
+    from detectandtrack_tpu_torch.utils.synthetic import greedy_nms_case
+    rng = np.random.default_rng(n)
+    boxes = torch.from_numpy(np.stack(
+        [greedy_nms_case(case, n, rng)[0] for _ in range(3)])).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=(3, n)) > 0.1).to(cuda)
     before = kn.nms_keep.launches
-    got = kn.nms_keep(supp, valid)
+    got = kn.nms_keep(boxes, valid, 0.5)
     assert kn.nms_keep.launches == before + 1
-    assert torch.equal(got, kn.nms_keep_reference(supp, valid))
+    assert torch.equal(got, kn.nms_keep_reference(boxes, valid, 0.5))
 
 
+def test_nms_keep_kernel_at_its_largest_n(cuda):
+    """One lane of MAX_KEEP_N boxes (512 words a row, 8 groups of 64
+    kept-bit words, every ring stage a full run), bit for bit."""
+    from detectandtrack_tpu_torch.kernels import nms as kn
+    n = kn.MAX_KEEP_N
+    rng = np.random.default_rng(3)
+    x1, y1 = rng.uniform(0, 1000, n), rng.uniform(0, 1000, n)
+    w, h = rng.uniform(8, 60, n), rng.uniform(8, 60, n)
+    boxes = torch.from_numpy(np.stack([x1, y1, x1 + w, y1 + h], 1).astype(
+        np.float32)).to(cuda)[None]
+    valid = torch.from_numpy(rng.uniform(size=(1, n)) > 0.1).to(cuda)
+    got = kn.nms_keep(boxes, valid, 0.5)
+    ref = kn.nms_keep_reference(boxes, valid, 0.5)
+    assert 0 < int(ref.sum()) < int(valid.sum())
+    assert torch.equal(got, ref)
+
+
+def test_nms_keep_kernel_at_the_iou_threshold(cuda):
+    """102400 box pairs with IoU within 4 f32 ulps of 0.7: a fused
+    multiply-add in the kernel's IoU flips some of them."""
+    from detectandtrack_tpu_torch.kernels import nms as kn
+    from detectandtrack_tpu_torch.utils.synthetic import iou_threshold_pairs
+    boxes = torch.from_numpy(iou_threshold_pairs(
+        np.random.default_rng(0), 1600, 64, 0.7)).to(cuda)
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=cuda)
+    got = kn.nms_keep(boxes, valid, 0.7)
+    ref = kn.nms_keep_reference(boxes, valid, 0.7)
+    second = ref[:, 1::2]
+    assert 0 < int((~second).sum()) < second.numel()
+    assert torch.equal(got, ref)
+
+
+def _spread_lane(rng, n, h=800, w=1344):
+    """Boxes of 16-320 px over an h x w image: few overlaps a box."""
+    x1, y1 = rng.uniform(0, w - 64, n), rng.uniform(0, h - 64, n)
+    bw, bh = rng.uniform(16, 320, n), rng.uniform(16, 320, n)
+    boxes = np.stack([x1, y1, np.minimum(x1 + bw, w - 1),
+                      np.minimum(y1 + bh, h - 1)], 1).astype(np.float32)
+    return boxes, rng.uniform(0, 1, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["random", "chain", "spread"])
 @pytest.mark.parametrize("method", ["linear", "gaussian"])
-@pytest.mark.parametrize("n", [1, 40, 300, 700])
-def test_soft_nms_confirm_kernel_matches_plain(cuda, method, n):
+@pytest.mark.parametrize("n", [1, 40, 300, 700, 1000])
+def test_soft_nms_confirm_kernel_matches_plain(cuda, method, n, case):
+    """Bit for bit. "random" and "chain" are dense (every box overlaps
+    most others: the decays stay in global memory), "spread" is sparse
+    (they are cached on chip); 700 boxes stage their overlaps in pieces,
+    and 1000 are past the kernel's on-chip state (column words and chunk
+    products in a global scratch)."""
     from detectandtrack_tpu_torch.kernels import nms as kn
     from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    xy = torch.rand((2, n, 2), device=cuda, generator=gen) * 200
-    wh = torch.rand((2, n, 2), device=cuda, generator=gen) * 60 + 4
-    boxes = torch.cat([xy, xy + wh], -1)
-    scores = torch.rand((2, n), device=cuda, generator=gen)
+    from detectandtrack_tpu_torch.utils.synthetic import soft_nms_case
+    rng = np.random.default_rng(n)
+    lanes = [_spread_lane(rng, n) if case == "spread"
+             else soft_nms_case(case, rng, n)[:2] for _ in range(2)]
+    boxes, scores = (torch.from_numpy(np.stack([x[k] for x in lanes])).to(
+        cuda) for k in range(2))
     iou = bbox_overlaps(boxes, boxes)
     dmat = (torch.where(iou > 0.3, 1.0 - iou, torch.ones_like(iou))
             if method == "linear" else torch.exp(-(iou * iou) / 0.5))
     overlaps = (dmat < 1.0) & ~torch.eye(n, dtype=torch.bool, device=cuda)
-    alive = torch.rand((2, n), device=cuda, generator=gen) > 0.2
+    alive = torch.from_numpy(rng.uniform(size=(2, n)) > 0.2).to(cuda)
     before = kn.soft_nms_confirm.launches
     got = kn.soft_nms_confirm(scores, dmat, overlaps, alive, -1e10)
     assert kn.soft_nms_confirm.launches == before + 1
     ref = kn.soft_nms_confirm_reference(scores, dmat, overlaps, alive, -1e10)
-    assert torch.equal(got > -5e9, ref > -5e9)
-    assert (got - ref).abs().max().item() <= 1e-6
+    assert torch.equal(got, ref)
 
 
 def test_graphed_detect_equals_eager_and_counts_replays(cuda):

@@ -4,9 +4,11 @@ the CUDA kernels are held to) against the JAX package's `nms_fixed`,
 `soft_nms_fixed` and `soft_nms_scan` on the same seeded numpy inputs.
 
 Greedy NMS: random boxes, a long suppression chain (each box suppresses
-only the next: the JAX fixpoint's worst case, N rounds), score ties and
-invalid rows, at N in {1, 63, 65, 1000} (one 64-bit word, either side of a
-word edge, the RPN's lane), two lanes batched; indices and masks exact.
+only the next: the JAX fixpoint's worst case, N rounds), score ties,
+invalid rows and non-finite coordinates (NaN and ±inf: the IoU semantics
+the CUDA kernel copies), at N in {1, 63, 65, 1000} (one 64-bit word,
+either side of a word edge, the RPN's lane), two lanes batched; indices
+and masks exact.
 Soft-NMS: the soft-NMS cases of `utils/synthetic.py`, linear and gaussian
 decay; indices and masks exact, scores within 1e-6 (the tolerance of
 tests/test_torch_surface_ops.py)."""
@@ -20,61 +22,37 @@ from detectandtrack_tpu_torch.kernels.nms import (nms_keep_reference,
                                                   soft_nms_confirm_reference)
 from detectandtrack_tpu_torch.ops import nms as tnms
 from detectandtrack_tpu_torch.ops.boxes import bbox_overlaps
-from detectandtrack_tpu_torch.utils.synthetic import (SOFT_NMS_CASES,
+from detectandtrack_tpu_torch.utils.synthetic import (GREEDY_NMS_CASES,
+                                                      SOFT_NMS_CASES,
+                                                      greedy_nms_case,
                                                       soft_nms_case)
 
 IOU = 0.5
-GREEDY_CASES = ("random", "chain", "ties", "invalid")
 SOFT_KW = dict(sigma=0.5, iou_thresh=0.3, score_thresh=0.05)
-
-
-def greedy_case(name, n, rng):
-    """One lane (boxes (n, 4), scores (n,), valid (n,)). "chain": boxes
-    12 px wide, 3 px apart, in score order: IoU 0.6 with the next box,
-    1/3 with the one after, so the greedy keeps every other box."""
-    x1, y1 = rng.uniform(0, 200, n), rng.uniform(0, 200, n)
-    w, h = rng.uniform(8, 60, n), rng.uniform(8, 60, n)
-    boxes = np.stack([x1, y1, x1 + w, y1 + h], 1).astype(np.float32)
-    scores = rng.uniform(0, 1, n).astype(np.float32)
-    valid = np.ones(n, bool)
-    if name == "chain":
-        x1 = np.arange(n, dtype=np.float32) * 3.0
-        boxes = np.stack([x1, np.zeros(n, np.float32), x1 + 11.0,
-                          np.full(n, 11.0, np.float32)], 1)
-        scores = np.linspace(1.0, 0.5, n).astype(np.float32)
-    elif name == "ties":
-        scores = np.round(scores * 4) / 4
-        boxes[n // 4:n // 2] = boxes[0]
-    elif name == "invalid":
-        valid = rng.uniform(size=n) > 0.4
-    return boxes, scores, valid
 
 
 def _lanes(name, n, seed):
     rng = np.random.default_rng(seed)
-    lanes = [greedy_case(name, n, rng) for _ in range(2)]
+    lanes = [greedy_nms_case(name, n, rng) for _ in range(2)]
     return [np.stack([lane[k] for lane in lanes]) for k in range(3)]
 
 
 def _sorted_inputs(boxes, scores, valid):
-    """`ops/nms.py::nms_fixed`'s sort and suppression matrix →
-    (order, supp, valid_sorted)."""
-    n = boxes.shape[-2]
+    """`ops/nms.py::nms_fixed`'s sort → (order, sorted boxes,
+    valid_sorted)."""
     scores = torch.where(valid, scores, torch.full_like(scores, -1e10))
     order = torch.argsort(-scores, dim=-1, stable=True)
     b = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
-    rank = torch.arange(n)
-    supp = (bbox_overlaps(b, b) > IOU) & (rank[:, None] < rank[None, :])
-    return order, supp, torch.gather(scores, -1, order) > -5e9
+    return order, b, torch.gather(scores, -1, order) > -5e9
 
 
 @pytest.mark.parametrize("n", [1, 63, 65, 1000])
-@pytest.mark.parametrize("case", GREEDY_CASES)
+@pytest.mark.parametrize("case", GREEDY_NMS_CASES)
 def test_nms_keep_and_nms_fixed_match_jax(case, n):
-    boxes, scores, valid = _lanes(case, n, 100 * n + GREEDY_CASES.index(case))
+    boxes, scores, valid = _lanes(case, n, 100 * n + GREEDY_NMS_CASES.index(case))
     tb, ts, tv = (torch.from_numpy(x) for x in (boxes, scores, valid))
-    order, supp, valid_sorted = _sorted_inputs(tb, ts, tv)
-    kept = nms_keep_reference(supp, valid_sorted)
+    order, sorted_boxes, valid_sorted = _sorted_inputs(tb, ts, tv)
+    kept = nms_keep_reference(sorted_boxes, valid_sorted, IOU)
     budget = n // 2 + 1
     got_idx, got_mask = tnms.nms_fixed(tb, ts, IOU, budget, tv)
     for li in range(2):
@@ -131,3 +109,66 @@ def test_soft_nms_confirm_and_soft_nms_fixed_match_jax(method, case):
             np.testing.assert_array_equal(picks[above].numpy(), idx[mask])
             np.testing.assert_allclose(final[li][picks][above].numpy(),
                                        sc[mask], rtol=1e-6, atol=1e-6)
+
+
+def _kernel_iou_bits(a, b, thresh):
+    """csrc/nms.cu's suppression bit for aligned box pairs, emulated in
+    numpy f32 (one rounding an operation, as the kernel's _rn intrinsics):
+    inter_union with fminf / fmaxf, the division-free decision
+    (iou_above_sure) and the exact division where it is unsure. Also
+    returns where the division-free decision was taken."""
+    f32 = np.float32
+    t = f32(thresh)
+
+    def area(x):
+        return ((x[:, 2] - x[:, 0]) + f32(1)) * ((x[:, 3] - x[:, 1]) + f32(1))
+
+    with np.errstate(all="ignore"):
+        iw = np.fmax((np.fmin(a[:, 2], b[:, 2]) - np.fmax(a[:, 0], b[:, 0]))
+                     + f32(1), f32(0))
+        ih = np.fmax((np.fmin(a[:, 3], b[:, 3]) - np.fmax(a[:, 1], b[:, 1]))
+                     + f32(1), f32(0))
+        inter = iw * ih
+        uni = (area(a) + area(b)) - inter
+        pos = uni > 0
+        f = t * uni
+        above = inter > f * f32(1 + 2.0 ** -20)
+        below = inter < f * f32(1 - 2.0 ** -20)
+        unsure = pos & ~((f >= f32(2.0 ** -100)) & (above | below))
+        bit = np.where(pos, above, f32(0) > t)
+        exact = np.where(pos, inter / uni, f32(0)) > t
+    return np.where(unsure, exact, bit), pos & ~unsure
+
+
+@pytest.mark.parametrize("thresh", [0.7, 0.5, 0.3, 1.0, 1e-30, 0.0, -0.5,
+                                    1.5])
+def test_mask_kernel_iou_rule_equals_bbox_overlaps(thresh):
+    """The mask kernel's IoU test, emulated, against `bbox_overlaps` >
+    thresh on pairs within 4 ulps of the threshold, random, tiny,
+    degenerate and non-finite pairs; the division-free decision must agree
+    with the division wherever it is taken."""
+    rng = np.random.default_rng(5)
+    from detectandtrack_tpu_torch.utils.synthetic import iou_threshold_pairs
+    sets = []
+    if 0 < thresh < 1:
+        near = iou_threshold_pairs(rng, 20, 256, thresh).reshape(-1, 2, 4)
+        sets.append((near[:, 0], near[:, 1]))
+    for scale in (1e-3, 1.0, 200.0):
+        xy = rng.uniform(0, 10 * scale, (4000, 2, 2))
+        wh = rng.uniform(-0.5 * scale, 3 * scale, (4000, 2, 2))
+        pairs = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+        sets.append((pairs[:, 0], pairs[:, 1]))
+    odd = rng.uniform(0, 50, (3000, 2, 4)).astype(np.float32)
+    bad = rng.uniform(size=odd.shape) < 0.15
+    odd[bad] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                          int(bad.sum()))
+    sets.append((odd[:, 0], odd[:, 1]))
+    decided_any = False
+    for a, b in sets:
+        got, decided = _kernel_iou_bits(a, b, thresh)
+        ref = (bbox_overlaps(torch.from_numpy(a)[:, None],
+                             torch.from_numpy(b)[:, None])[:, 0, 0]
+               > thresh).numpy()
+        np.testing.assert_array_equal(got, ref)
+        decided_any |= bool(decided.any())
+    assert decided_any == (thresh > 0)

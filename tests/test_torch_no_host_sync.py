@@ -200,8 +200,8 @@ def test_graphs_key_by_signature_and_return_fresh_copies(monkeypatch):
 def test_graph_capture_failure_names_the_line():
     class Failing(_StandInFactory):
         def capture(self, fn, args, kwargs, device, pool):
-            supp = torch.zeros(2, 3, dtype=torch.bool)    # not (N, N)
-            knms.nms_keep(supp, torch.zeros(3, dtype=torch.bool))
+            boxes = torch.zeros(2, 3, 4)          # 3 boxes, 5 flags
+            knms.nms_keep(boxes, torch.zeros(5, dtype=torch.bool), 0.5)
 
     fn = graphs.GraphedFunction(_counted_fn, "failing", Failing())
     with pytest.raises(RuntimeError, match=r"failing: CUDA graph capture "
