@@ -2,6 +2,8 @@
 the peaks and work formulas, the FLOP-count rule and the trace arithmetic.
 They hold the copies still; none compares with the system under test."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -134,3 +136,52 @@ def test_trace_arithmetic():
     assert tr.idle_gaps(3) == [["bench/read_back", 45e-6],
                                ["bench/dispatch", 25e-6]]
     assert tr.span_us("bench/dispatch") == [22.0]
+
+
+def _event(name, device, start, end, annotation=False, activity=None):
+    return SimpleNamespace(
+        name=name, device_type=f"DeviceType.{device}",
+        time_range=SimpleNamespace(start=start, end=end),
+        is_user_annotation=annotation, activity_type=activity)
+
+
+class _Profiler:
+    """A stand-in for a finished `torch.profiler.profile`: two kernels and
+    a memory set on the card; the host scopes `bench/window`, `bench/step`
+    and, inside it, the program's `x/phase`, whose device shadow covers
+    the idle gap between the kernels. `bench/step`'s shadow carries only
+    its activity type, `x/phase`'s only the annotation flag."""
+
+    def events(self):
+        return [
+            _event("bench/window", "CPU", 0.0, 100.0, True,
+                   "user_annotation"),
+            _event("bench/step", "CPU", 5.0, 90.0, True, "user_annotation"),
+            _event("x/phase", "CPU", 8.0, 65.0, True, "user_annotation"),
+            _event("aten::add", "CPU", 30.0, 31.0, False, "cpu_op"),
+            _event("bench/step", "CUDA", 10.0, 72.0, False,
+                   "gpu_user_annotation"),
+            _event("x/phase", "CUDA", 10.0, 70.0, True),
+            _event("void k1<float>(P)", "CUDA", 10.0, 20.0, False, "kernel"),
+            _event("void k2<float>(P)", "CUDA", 60.0, 70.0, False, "kernel"),
+            _event("Memset (Device)", "CUDA", 70.0, 72.0, False,
+                   "gpu_memset"),
+        ]
+
+
+def test_program_scopes_are_no_device_work():
+    """A scope's device shadow is not device work, whatever its name;
+    memory sets are; host scopes name the idle time, which
+    `idle_us_by_span` cuts at their edges."""
+    tr = trace.from_profiler(_Profiler(), "bench/window")
+    assert tr.window == (0.0, 100.0)
+    assert tr.busy_us() == 10.0 + 10.0 + 2.0
+    assert [n for n, *_ in tr.top_ops()] == ["k1", "k2", "Memset"]
+    assert [n for n, _, _ in tr.spans] == ["bench/step", "x/phase"]
+    assert tr.idle_gaps(3) == [["x/phase", 40e-6], ["bench/step", 28e-6],
+                               ["bench/step", 10e-6]]
+    # [0, 10]: 5 outside every span, 3 in bench/step, 2 in x/phase;
+    # [20, 60] in x/phase; [72, 100]: 18 in bench/step, 10 outside.
+    assert tr.idle_us_by_span() == {"idle": 15.0, "bench/step": 21.0,
+                                    "x/phase": 42.0}
+    assert sum(tr.idle_us_by_span().values()) == tr.window_us - tr.busy_us()
