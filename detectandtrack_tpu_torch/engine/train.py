@@ -47,6 +47,7 @@ from ..models.rpn import anchor_cell_for_level, flatten_rpn_outputs
 from ..ops.anchors import shifted_anchor_field
 from ..utils.lr_policy import make_schedule
 from ..utils.params import flax_path
+from ..utils.profiling import scope
 from . import losses as L
 from . import targets as T
 
@@ -101,7 +102,9 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
                   gt_mask_valid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full training forward → (total loss, loss terms), with graphs.
-    RPN_ONLY trains the RPN losses alone."""
+    RPN_ONLY trains the RPN losses alone. Traced, it runs the model's stage
+    scopes, `train/targets` (the anchor field, the draws and their copies
+    to the device, every target) and `train/losses`."""
     cfg = model.cfg
     t = model.num_frames
     b = clips.shape[0]
@@ -113,23 +116,26 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
                                                  train=True)
 
     # ---- RPN losses over the concatenated anchor field ----
-    anchors = torch.as_tensor(
-        _anchor_field_all_levels(cfg, *model._pyramid_list(pyramid)),
-        device=dev)
+    with scope("train/targets"):
+        anchors = torch.as_tensor(
+            _anchor_field_all_levels(cfg, *model._pyramid_list(pyramid)),
+            device=dev)
+        u_fg, u_bg = draws("rpn", b, anchors.shape[0])
     flat = [flatten_rpn_outputs(lg, dl, t) for lg, dl in rpn_raw]
     logits_all = torch.cat([f[0] for f in flat], dim=1)
     deltas_all = torch.cat([f[1] for f in flat], dim=1)
-    u_fg, u_bg = draws("rpn", b, anchors.shape[0])
     rpn_terms = []
     for i in range(b):
-        tgt = T.rpn_targets(
-            anchors, gt_boxes[i], gt_valid[i], t, image_hw, u_fg[i].to(dev),
-            u_bg[i].to(dev), cfg.RPN.POSITIVE_OVERLAP,
-            cfg.RPN.NEGATIVE_OVERLAP, cfg.RPN.BATCH_SIZE_PER_IM,
-            cfg.RPN.FG_FRACTION, float(cfg.RPN.STRADDLE_THRESH))
-        rpn_terms.append(L.rpn_losses(logits_all[i], deltas_all[i],
-                                      tgt.labels, tgt.bbox_targets,
-                                      cfg.RPN.SMOOTH_L1_BETA))
+        with scope("train/targets"):
+            tgt = T.rpn_targets(
+                anchors, gt_boxes[i], gt_valid[i], t, image_hw,
+                u_fg[i].to(dev), u_bg[i].to(dev), cfg.RPN.POSITIVE_OVERLAP,
+                cfg.RPN.NEGATIVE_OVERLAP, cfg.RPN.BATCH_SIZE_PER_IM,
+                cfg.RPN.FG_FRACTION, float(cfg.RPN.STRADDLE_THRESH))
+        with scope("train/losses"):
+            rpn_terms.append(L.rpn_losses(logits_all[i], deltas_all[i],
+                                          tgt.labels, tgt.bbox_targets,
+                                          cfg.RPN.SMOOTH_L1_BETA))
     rpn_cls = torch.stack([c for c, _ in rpn_terms]).mean()
     rpn_box = torch.stack([bx for _, bx in rpn_terms]).mean()
     if cfg.MODEL.RPN_ONLY:
@@ -138,24 +144,29 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
                        "loss_total": total}
 
     # ---- Proposal sampling + box head ----
-    u_fg, u_bg = draws("proposals", b, tubes.shape[1] + gt_boxes.shape[1])
-    ptgt = _stack([T.proposal_targets(
-        tubes[i], p_valid[i], gt_boxes[i], gt_keypoints[i], gt_valid[i], t,
-        u_fg[i].to(dev), u_bg[i].to(dev), cfg.FAST_RCNN.BATCH_SIZE_PER_IM,
-        cfg.FAST_RCNN.FG_FRACTION, cfg.FAST_RCNN.FG_THRESH,
-        cfg.FAST_RCNN.BG_THRESH_HI, cfg.FAST_RCNN.BG_THRESH_LO,
-        cfg.FAST_RCNN.BBOX_REG_WEIGHTS) for i in range(b)])
+    with scope("train/targets"):
+        u_fg, u_bg = draws("proposals", b,
+                           tubes.shape[1] + gt_boxes.shape[1])
+        ptgt = _stack([T.proposal_targets(
+            tubes[i], p_valid[i], gt_boxes[i], gt_keypoints[i], gt_valid[i],
+            t, u_fg[i].to(dev), u_bg[i].to(dev),
+            cfg.FAST_RCNN.BATCH_SIZE_PER_IM, cfg.FAST_RCNN.FG_FRACTION,
+            cfg.FAST_RCNN.FG_THRESH, cfg.FAST_RCNN.BG_THRESH_HI,
+            cfg.FAST_RCNN.BG_THRESH_LO, cfg.FAST_RCNN.BBOX_REG_WEIGHTS)
+            for i in range(b)])
 
     s = ptgt.rois.shape[1]
     pooled = model.roi_transform(pyramid, ptgt.rois,
                                  cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
                                  cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO)
     cls_logits, deltas, _ = model.box_head(pooled)
-    cls_loss, box_loss = L.fast_rcnn_losses(
-        cls_logits, deltas.reshape(b * s, cfg.MODEL.NUM_CLASSES, t, 4),
-        ptgt.labels.reshape(b * s), ptgt.bbox_targets.reshape(b * s, 4 * t),
-        ptgt.bbox_weights.reshape(b * s), ptgt.valid.reshape(b * s),
-        cfg.FAST_RCNN.SMOOTH_L1_BETA)
+    with scope("train/losses"):
+        cls_loss, box_loss = L.fast_rcnn_losses(
+            cls_logits, deltas.reshape(b * s, cfg.MODEL.NUM_CLASSES, t, 4),
+            ptgt.labels.reshape(b * s),
+            ptgt.bbox_targets.reshape(b * s, 4 * t),
+            ptgt.bbox_weights.reshape(b * s), ptgt.valid.reshape(b * s),
+            cfg.FAST_RCNN.SMOOTH_L1_BETA)
 
     total = rpn_cls + rpn_box + cls_loss + box_loss
     metrics = {"loss_rpn_cls": rpn_cls, "loss_rpn_bbox": rpn_box,
@@ -181,13 +192,15 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
         hm_logits = model.kps_head(kp_pooled)           # (B·KP, Tk, S, S, K)
         hs = hm_logits.shape[2]
         n_kp = cfg.KRCNN.NUM_KEYPOINTS
-        bins, w = T.keypoint_heatmap_targets(
-            kp_rois.reshape(-1, 4), kp_gt.reshape(-1, n_kp, 3), hs)
+        with scope("train/targets"):
+            bins, w = T.keypoint_heatmap_targets(
+                kp_rois.reshape(-1, 4), kp_gt.reshape(-1, n_kp, 3), hs)
         fg = ptgt.is_fg[:, :kp].reshape(-1).float().repeat_interleave(t_kp)
-        kp_loss = L.keypoint_loss(hm_logits.reshape(-1, hs, hs, n_kp), bins,
-                                  w * fg[:, None],
-                                  cfg.KRCNN.NORMALIZE_BY_VISIBLE_KEYPOINTS,
-                                  cfg.KRCNN.LOSS_WEIGHT)
+        with scope("train/losses"):
+            kp_loss = L.keypoint_loss(
+                hm_logits.reshape(-1, hs, hs, n_kp), bins, w * fg[:, None],
+                cfg.KRCNN.NORMALIZE_BY_VISIBLE_KEYPOINTS,
+                cfg.KRCNN.LOSS_WEIGHT)
         total = total + kp_loss
         metrics["loss_kps"] = kp_loss
 
@@ -205,11 +218,14 @@ def train_forward(model: GeneralizedRCNN, clips: torch.Tensor,
             cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO))          # (B·MB, T, P, P, C)
         pm = m_logits.shape[2]
         mg = mk_masks.shape[-1]
-        tgt = T.mask_targets(m_rois.reshape(-1, 4), mk_boxes.reshape(-1, 4),
-                             mk_masks.reshape(-1, mg, mg), pm)
+        with scope("train/targets"):
+            tgt = T.mask_targets(m_rois.reshape(-1, 4),
+                                 mk_boxes.reshape(-1, 4),
+                                 mk_masks.reshape(-1, mg, mg), pm)
         w_mask = (ptgt.is_fg[:, :mb, None] & mk_valid.bool()).reshape(-1)
-        m_loss = L.mask_loss(m_logits[..., 1].reshape(-1, pm, pm), tgt,
-                             w_mask.float(), cfg.MRCNN.WEIGHT_LOSS_MASK)
+        with scope("train/losses"):
+            m_loss = L.mask_loss(m_logits[..., 1].reshape(-1, pm, pm), tgt,
+                                 w_mask.float(), cfg.MRCNN.WEIGHT_LOSS_MASK)
         total = total + m_loss
         metrics["loss_mask"] = m_loss
 
@@ -298,7 +314,9 @@ def make_train_step(model: GeneralizedRCNN, cfg,
     mesh, `batch` is this rank's rows of the global batch, and the
     gradients and metrics are the means over the ranks (a parameter with
     no gradient on a rank counts as zeros there, so every rank reduces the
-    same buffer). Metrics are detached 0-d tensors on the device."""
+    same buffer). Metrics are detached 0-d tensors on the device. Traced,
+    a step is the scopes `train/forward` (all of `train_forward`),
+    `train/backward` and `train/update` (`utils.profiling.scope`)."""
     opt = make_optimizer(cfg, model)
     rank = mesh.rank if mesh is not None else 0
 
@@ -308,11 +326,13 @@ def make_train_step(model: GeneralizedRCNN, cfg,
             draws = generator_draws(cfg.RNG_SEED, state.step, rank)
         for p in state.params.values():
             p.grad = None
-        total, metrics = train_forward(
-            model, batch["clips"], batch["gt_boxes"], batch["gt_keypoints"],
-            batch["gt_valid"], draws, batch.get("gt_masks"),
-            batch.get("gt_mask_valid"))
-        total.backward()
+        with scope("train/forward"):
+            total, metrics = train_forward(
+                model, batch["clips"], batch["gt_boxes"],
+                batch["gt_keypoints"], batch["gt_valid"], draws,
+                batch.get("gt_masks"), batch.get("gt_mask_valid"))
+        with scope("train/backward"):
+            total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None and mesh.size > 1:
             trained = [p for p in state.params.values() if p.requires_grad]
@@ -323,7 +343,8 @@ def make_train_step(model: GeneralizedRCNN, cfg,
             for p, g in zip(trained, means):
                 p.grad = g
             metrics = dict(zip(names, means[len(trained):]))
-        opt.update(state)
+        with scope("train/update"):
+            opt.update(state)
         state = TrainState(state.params, state.momentum, state.step + 1)
         return state, metrics
 

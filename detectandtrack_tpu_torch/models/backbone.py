@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.conv1 import conv1_autograd
+from ..utils.profiling import scope
 
 # Per-depth stage block counts (res2..res5).
 STAGE_BLOCKS = {
@@ -261,17 +262,18 @@ class ResNet(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """clips → {res2..res<last_stage>}; the later stages keep their
         parameters but do not run (C4 reads res4 only)."""
-        y = F.relu(self.conv1(x))
-        b, t, h, w, c = y.shape
-        y = F.max_pool2d(y.reshape(b * t, h, w, c).permute(0, 3, 1, 2),
-                         3, 2, 1)
-        y = y.permute(0, 2, 3, 1).reshape(b, t, y.shape[2], y.shape[3], c)
-        feats = {}
-        for stage, names in enumerate(self.stage_names[:last_stage - 1]):
-            for name in names:
-                y = getattr(self, name)(y)
-            feats[f"res{stage + 2}"] = y
-        return feats
+        with scope("model/backbone"):
+            y = F.relu(self.conv1(x))
+            b, t, h, w, c = y.shape
+            y = F.max_pool2d(y.reshape(b * t, h, w, c).permute(0, 3, 1, 2),
+                             3, 2, 1)
+            y = y.permute(0, 2, 3, 1).reshape(b, t, y.shape[2], y.shape[3], c)
+            feats = {}
+            for stage, names in enumerate(self.stage_names[:last_stage - 1]):
+                for name in names:
+                    y = getattr(self, name)(y)
+                feats[f"res{stage + 2}"] = y
+            return feats
 
 
 def backbone_from_cfg(cfg) -> ResNet:

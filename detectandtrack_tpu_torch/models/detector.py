@@ -14,6 +14,12 @@ Shapes are static and padded with validity masks, as in the JAX model:
 The same model trains: `engine/train.py` runs `features`,
 `propose(train=True)`, `roi_transform` and the heads, and gradients flow
 through the RoIAlign and conv1 kernels' autograd Functions.
+
+Each stage is a profiler scope (`utils/profiling.scope`, entered only while
+a profiler runs): model/backbone, model/fpn (their modules), model/rpn and
+model/nms (`propose`, the final NMS), model/roi_transform, model/box_head,
+model/kps_head, model/mask_head (the heads' modules) and model/decode (the
+keypoint decode). A CUDA graph's replay runs none of them.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..ops import boxes as box_ops
 from ..ops.anchors import shifted_anchor_field
 from ..ops.keypoints import flip_permutation_tensor, heatmaps_to_keypoints
 from ..ops.nms import nms_fixed, soft_nms_fixed
+from ..utils.profiling import scope
 from .backbone import BASIC_ARCHS, backbone_from_cfg, compute_dtype
 from .fpn import FPN
 from .heads import BoxHead2MLP, KeypointHead, MaskHead, Res5BoxHead
@@ -163,40 +170,45 @@ class GeneralizedRCNN(nn.Module):
                 else cfg.RPN.POST_NMS_TOP_N_TEST)
         raw = []
         lvl_tubes, lvl_scores = [], []
-        for li, (fmap, stride) in enumerate(zip(*self._pyramid_list(pyramid))):
-            logits, deltas = self.rpn_head(fmap)
-            raw.append((logits, deltas))
-            scores, deltas = flatten_rpn_outputs(logits, deltas, t)
-            field = self._anchor_field(li, stride, fmap)
-            k_pre = min(pre, scores.shape[1])
-            ts, ti = topk_stable(scores, k_pre)                  # (B, k_pre)
-            tubes = decode_tube_proposals(field[ti], _gather_rows(deltas, ti),
-                                          image_hw, t)
-            if k_pre < pre:            # small level: pad to a common width
-                tubes = F.pad(tubes, (0, 0, 0, pre - k_pre))
-                ts = F.pad(ts, (0, pre - k_pre), value=float("-inf"))
-            lvl_tubes.append(tubes)
-            lvl_scores.append(ts)
+        with scope("model/rpn"):
+            for li, (fmap, stride) in enumerate(
+                    zip(*self._pyramid_list(pyramid))):
+                logits, deltas = self.rpn_head(fmap)
+                raw.append((logits, deltas))
+                scores, deltas = flatten_rpn_outputs(logits, deltas, t)
+                field = self._anchor_field(li, stride, fmap)
+                k_pre = min(pre, scores.shape[1])
+                ts, ti = topk_stable(scores, k_pre)              # (B, k_pre)
+                tubes = decode_tube_proposals(
+                    field[ti], _gather_rows(deltas, ti), image_hw, t)
+                if k_pre < pre:        # small level: pad to a common width
+                    tubes = F.pad(tubes, (0, 0, 0, pre - k_pre))
+                    ts = F.pad(ts, (0, pre - k_pre), value=float("-inf"))
+                lvl_tubes.append(tubes)
+                lvl_scores.append(ts)
 
-        b = lvl_tubes[0].shape[0]
-        n_lvl = len(lvl_tubes)
-        flat_tubes = torch.stack(lvl_tubes).reshape(
-            n_lvl * b, pre, 4 * t).detach()
-        flat_scores = torch.stack(lvl_scores).reshape(n_lvl * b, pre).detach()
-        rep = center_frame_box(flat_tubes, t)
-        valid = torch.isfinite(flat_scores)
-        if cfg.RPN.MIN_SIZE > 0:
-            valid = valid & box_ops.filter_small_boxes(rep, cfg.RPN.MIN_SIZE)
-        keep_idx, keep_mask = nms_fixed(rep, flat_scores, cfg.RPN.NMS_THRESH,
-                                        post, valid)
-        sel_tubes = _gather_rows(flat_tubes, keep_idx).reshape(
-            n_lvl, b, post, 4 * t)
-        sel_scores = torch.gather(flat_scores, 1, keep_idx).reshape(
-            n_lvl, b, post)
-        sel_valid = keep_mask.reshape(n_lvl, b, post)
-        tubes, scores, valid = collect_fpn_proposals(
-            sel_tubes.unbind(0), sel_scores.unbind(0), sel_valid.unbind(0),
-            post)
+        with scope("model/nms"):
+            b = lvl_tubes[0].shape[0]
+            n_lvl = len(lvl_tubes)
+            flat_tubes = torch.stack(lvl_tubes).reshape(
+                n_lvl * b, pre, 4 * t).detach()
+            flat_scores = torch.stack(lvl_scores).reshape(
+                n_lvl * b, pre).detach()
+            rep = center_frame_box(flat_tubes, t)
+            valid = torch.isfinite(flat_scores)
+            if cfg.RPN.MIN_SIZE > 0:
+                valid = valid & box_ops.filter_small_boxes(rep,
+                                                           cfg.RPN.MIN_SIZE)
+            keep_idx, keep_mask = nms_fixed(rep, flat_scores,
+                                            cfg.RPN.NMS_THRESH, post, valid)
+            sel_tubes = _gather_rows(flat_tubes, keep_idx).reshape(
+                n_lvl, b, post, 4 * t)
+            sel_scores = torch.gather(flat_scores, 1, keep_idx).reshape(
+                n_lvl, b, post)
+            sel_valid = keep_mask.reshape(n_lvl, b, post)
+            tubes, scores, valid = collect_fpn_proposals(
+                sel_tubes.unbind(0), sel_scores.unbind(0),
+                sel_valid.unbind(0), post)
         return (tubes, scores, valid), raw
 
     # -- RoI feature transform --------------------------------------------
@@ -206,32 +218,33 @@ class GeneralizedRCNN(nn.Module):
         """tubes (B, K, 4T) → pooled (B·K, T, P, P, C). The FPN level comes
         from the center-frame box (C4: the one res4 level); frame f of a
         tube pools from slab b·T + f."""
-        cfg = self.cfg
-        t = self.num_frames
-        b, k = tubes.shape[:2]
-        maps, strides = self._levels(pyramid, cfg.FPN.ROI_MIN_LEVEL,
-                                     cfg.FPN.ROI_MAX_LEVEL)
-        per_frame = tubes.float().reshape(b, k, t, 4)
-        slab_rois = per_frame.permute(0, 2, 1, 3).reshape(b * t, k, 4)
-        if cfg.FPN.FPN_ON:
-            center = per_frame[:, :, t // 2, :].reshape(b * k, 4)
-            levels = assign_fpn_levels(
-                center, cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL,
-                cfg.FPN.ROI_CANONICAL_SCALE, cfg.FPN.ROI_CANONICAL_LEVEL)
-        else:
-            levels = torch.zeros((b * k,), dtype=torch.int32,
-                                 device=tubes.device)
-        slab_levels = levels.reshape(b, 1, k).expand(b, t, k).reshape(b * t,
-                                                                      k)
-        flat_maps = [m.reshape((-1,) + m.shape[2:]).contiguous()
-                     for m in maps]
-        pooled = roi_align_multilevel_autograd(
-            flat_maps, strides, slab_rois.contiguous(),
-            slab_levels.contiguous(), resolution, sampling_ratio)
-        c = pooled.shape[-1]
-        pooled = pooled.reshape(b, t, k, resolution, resolution, c)
-        return pooled.permute(0, 2, 1, 3, 4, 5).reshape(
-            b * k, t, resolution, resolution, c)
+        with scope("model/roi_transform"):
+            cfg = self.cfg
+            t = self.num_frames
+            b, k = tubes.shape[:2]
+            maps, strides = self._levels(pyramid, cfg.FPN.ROI_MIN_LEVEL,
+                                         cfg.FPN.ROI_MAX_LEVEL)
+            per_frame = tubes.float().reshape(b, k, t, 4)
+            slab_rois = per_frame.permute(0, 2, 1, 3).reshape(b * t, k, 4)
+            if cfg.FPN.FPN_ON:
+                center = per_frame[:, :, t // 2, :].reshape(b * k, 4)
+                levels = assign_fpn_levels(
+                    center, cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL,
+                    cfg.FPN.ROI_CANONICAL_SCALE, cfg.FPN.ROI_CANONICAL_LEVEL)
+            else:
+                levels = torch.zeros((b * k,), dtype=torch.int32,
+                                     device=tubes.device)
+            slab_levels = levels.reshape(b, 1, k).expand(b, t, k).reshape(
+                b * t, k)
+            flat_maps = [m.reshape((-1,) + m.shape[2:]).contiguous()
+                         for m in maps]
+            pooled = roi_align_multilevel_autograd(
+                flat_maps, strides, slab_rois.contiguous(),
+                slab_levels.contiguous(), resolution, sampling_ratio)
+            c = pooled.shape[-1]
+            pooled = pooled.reshape(b, t, k, resolution, resolution, c)
+            return pooled.permute(0, 2, 1, 3, 4, 5).reshape(
+                b * k, t, resolution, resolution, c)
 
     # -- inference stages -------------------------------------------------
 
@@ -302,13 +315,16 @@ class GeneralizedRCNN(nn.Module):
         d_max = cfg.TEST.DETECTIONS_PER_IM
         center = refined.reshape(b, k, t, 4)[:, :, t // 2]
         ok = valid & (scores >= cfg.TEST.SCORE_THRESH)
-        if cfg.TEST.SOFT_NMS_ENABLED:
-            idx, mask, det_scores = soft_nms_fixed(
-                center, scores, d_max, cfg.TEST.SOFT_NMS_SIGMA, cfg.TEST.NMS,
-                cfg.TEST.SCORE_THRESH, cfg.TEST.SOFT_NMS_METHOD, ok)
-        else:
-            idx, mask = nms_fixed(center, scores, cfg.TEST.NMS, d_max, ok)
-            det_scores = torch.gather(scores, 1, idx)
+        with scope("model/nms"):
+            if cfg.TEST.SOFT_NMS_ENABLED:
+                idx, mask, det_scores = soft_nms_fixed(
+                    center, scores, d_max, cfg.TEST.SOFT_NMS_SIGMA,
+                    cfg.TEST.NMS, cfg.TEST.SCORE_THRESH,
+                    cfg.TEST.SOFT_NMS_METHOD, ok)
+            else:
+                idx, mask = nms_fixed(center, scores, cfg.TEST.NMS, d_max,
+                                      ok)
+                det_scores = torch.gather(scores, 1, idx)
         det_boxes = _gather_rows(refined, idx)
         if cfg.TEST.BBOX_VOTE_ENABLED:
             det_centers = det_boxes.reshape(b, -1, t, 4)[:, :, t // 2]
@@ -369,28 +385,30 @@ class GeneralizedRCNN(nn.Module):
                           t_kp, d_max):
         """Heatmaps (B·M, Tk, S, S, K) + boxes → padded (B, D, T, K, 4); a
         center-frame pose is broadcast to every frame."""
-        cfg = self.cfg
-        t = self.num_frames
-        b = kp_boxes.shape[0]
-        s_hm = heatmaps.shape[2]
-        n_kp = cfg.KRCNN.NUM_KEYPOINTS
-        hm_flat = heatmaps.reshape(b * m_kp * t_kp, s_hm, s_hm, n_kp)
-        kps = heatmaps_to_keypoints(hm_flat.permute(0, 3, 1, 2),
-                                    decode_boxes.reshape(b * m_kp * t_kp, 4))
-        kps = kps.reshape(b, m_kp, t_kp, n_kp, 4)
-        if cfg.KRCNN.INFERENCE_MIN_SIZE > 0:
-            cb = kp_boxes.reshape(b, m_kp, t, 4)[:, :, t // 2]
-            side = torch.minimum(cb[..., 2] - cb[..., 0],
-                                 cb[..., 3] - cb[..., 1])
-            big = (side >= cfg.KRCNN.INFERENCE_MIN_SIZE).to(kps.dtype)
-            kps = torch.cat([kps[..., :2],
-                             kps[..., 2:] * big[:, :, None, None, None]],
-                            dim=-1)
-        if t_kp != t:
-            kps = kps.expand(b, m_kp, t, n_kp, 4)
-        if m_kp != d_max:
-            kps = F.pad(kps, (0, 0, 0, 0, 0, 0, 0, d_max - m_kp))
-        return kps
+        with scope("model/decode"):
+            cfg = self.cfg
+            t = self.num_frames
+            b = kp_boxes.shape[0]
+            s_hm = heatmaps.shape[2]
+            n_kp = cfg.KRCNN.NUM_KEYPOINTS
+            hm_flat = heatmaps.reshape(b * m_kp * t_kp, s_hm, s_hm, n_kp)
+            kps = heatmaps_to_keypoints(
+                hm_flat.permute(0, 3, 1, 2),
+                decode_boxes.reshape(b * m_kp * t_kp, 4))
+            kps = kps.reshape(b, m_kp, t_kp, n_kp, 4)
+            if cfg.KRCNN.INFERENCE_MIN_SIZE > 0:
+                cb = kp_boxes.reshape(b, m_kp, t, 4)[:, :, t // 2]
+                side = torch.minimum(cb[..., 2] - cb[..., 0],
+                                     cb[..., 3] - cb[..., 1])
+                big = (side >= cfg.KRCNN.INFERENCE_MIN_SIZE).to(kps.dtype)
+                kps = torch.cat([kps[..., :2],
+                                 kps[..., 2:] * big[:, :, None, None, None]],
+                                dim=-1)
+            if t_kp != t:
+                kps = kps.expand(b, m_kp, t, n_kp, 4)
+            if m_kp != d_max:
+                kps = F.pad(kps, (0, 0, 0, 0, 0, 0, 0, d_max - m_kp))
+            return kps
 
     def _keypoint_outputs(self, passes, det_boxes, image_w: float):
         """Keypoint heatmaps (B, M, Tk, S, S, K) and their decode on the

@@ -10,6 +10,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ..utils.profiling import scope
 from .backbone import Conv3d
 
 _STAGES = ("res2", "res3", "res4", "res5")       # strides 4..32
@@ -42,14 +43,17 @@ class FPN(nn.Module):
 
     def forward(self, feats: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        laterals = [getattr(self, f"lateral_{n}")(feats[n]) for n in _STAGES]
-        td = laterals[-1]
-        outs = {"p5": td}
-        for i in range(len(_STAGES) - 2, -1, -1):
-            td = laterals[i] + upsample_nearest_2x(td)
-            outs[f"p{i + 2}"] = td
-        for lvl in ("p2", "p3", "p4", "p5"):
-            outs[lvl] = getattr(self, f"posthoc_{lvl}")(outs[lvl])
-        outs["p6"] = (self.extra_p6(outs["p5"]) if self.extra_p6 is not None
-                      else outs["p5"][:, :, ::2, ::2])
-        return outs
+        with scope("model/fpn"):
+            laterals = [getattr(self, f"lateral_{n}")(feats[n])
+                        for n in _STAGES]
+            td = laterals[-1]
+            outs = {"p5": td}
+            for i in range(len(_STAGES) - 2, -1, -1):
+                td = laterals[i] + upsample_nearest_2x(td)
+                outs[f"p{i + 2}"] = td
+            for lvl in ("p2", "p3", "p4", "p5"):
+                outs[lvl] = getattr(self, f"posthoc_{lvl}")(outs[lvl])
+            outs["p6"] = (self.extra_p6(outs["p5"])
+                          if self.extra_p6 is not None
+                          else outs["p5"][:, :, ::2, ::2])
+            return outs

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import scope
 from .backbone import Bottleneck, Conv3d
 
 
@@ -44,11 +45,12 @@ class BoxHead2MLP(nn.Module):
 
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        r = roi_feats.shape[0]
-        x = roi_feats.reshape(r, -1).to(self.dtype)
-        x = F.relu(self._dense(self.fc6, x))
-        x = F.relu(self._dense(self.fc7, x)).float()
-        return self.cls_score(x), self.bbox_pred(x), x
+        with scope("model/box_head"):
+            r = roi_feats.shape[0]
+            x = roi_feats.reshape(r, -1).to(self.dtype)
+            x = F.relu(self._dense(self.fc6, x))
+            x = F.relu(self._dense(self.fc7, x)).float()
+            return self.cls_score(x), self.bbox_pred(x), x
 
 
 class KeypointHead(nn.Module):
@@ -79,14 +81,15 @@ class KeypointHead(nn.Module):
         nn.init.zeros_(self.kps_score_lowres.bias)
 
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
-        r, t, p, _, c = roi_feats.shape
-        x = roi_feats.reshape(r * t, 1, p, p, c)
-        for i in range(self.num_convs):
-            x = F.relu(getattr(self, f"conv_fcn{i + 1}")(x))
-        x = x[:, 0].float().permute(0, 3, 1, 2)          # (R·T, C, P, P)
-        logits = self.kps_score_lowres(x).permute(0, 2, 3, 1)
-        size = logits.shape[1]
-        return logits.reshape(r, t, size, size, self.num_keypoints)
+        with scope("model/kps_head"):
+            r, t, p, _, c = roi_feats.shape
+            x = roi_feats.reshape(r * t, 1, p, p, c)
+            for i in range(self.num_convs):
+                x = F.relu(getattr(self, f"conv_fcn{i + 1}")(x))
+            x = x[:, 0].float().permute(0, 3, 1, 2)          # (R·T, C, P, P)
+            logits = self.kps_score_lowres(x).permute(0, 2, 3, 1)
+            size = logits.shape[1]
+            return logits.reshape(r, t, size, size, self.num_keypoints)
 
 
 class Res5BoxHead(nn.Module):
@@ -121,11 +124,12 @@ class Res5BoxHead(nn.Module):
 
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = roi_feats
-        for b in range(3):
-            x = getattr(self, f"res5_{b}")(x)
-        flat = x.mean(dim=(2, 3)).reshape(x.shape[0], -1).float()
-        return self.cls_score(flat), self.bbox_pred(flat), flat
+        with scope("model/box_head"):
+            x = roi_feats
+            for b in range(3):
+                x = getattr(self, f"res5_{b}")(x)
+            flat = x.mean(dim=(2, 3)).reshape(x.shape[0], -1).float()
+            return self.cls_score(flat), self.bbox_pred(flat), flat
 
 
 class MaskHead(nn.Module):
@@ -159,14 +163,15 @@ class MaskHead(nn.Module):
         nn.init.zeros_(self.mask_fcn_logits.bias)
 
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
-        r, t, p, _, c = roi_feats.shape
-        x = roi_feats.reshape(r * t, 1, p, p, c)
-        for i in range(4):
-            x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
-        x = x[:, 0].to(self.dtype).permute(0, 3, 1, 2)     # (R·T, C, P, P)
-        up = self.conv5_mask
-        x = F.relu(F.conv_transpose2d(x, up.weight.to(self.dtype),
-                                      up.bias.to(self.dtype), stride=2))
-        logits = self.mask_fcn_logits(x.float()).permute(0, 2, 3, 1)
-        size = logits.shape[1]
-        return logits.reshape(r, t, size, size, self.num_classes)
+        with scope("model/mask_head"):
+            r, t, p, _, c = roi_feats.shape
+            x = roi_feats.reshape(r * t, 1, p, p, c)
+            for i in range(4):
+                x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
+            x = x[:, 0].to(self.dtype).permute(0, 3, 1, 2)  # (R·T, C, P, P)
+            up = self.conv5_mask
+            x = F.relu(F.conv_transpose2d(x, up.weight.to(self.dtype),
+                                          up.bias.to(self.dtype), stride=2))
+            logits = self.mask_fcn_logits(x.float()).permute(0, 2, 3, 1)
+            size = logits.shape[1]
+            return logits.reshape(r, t, size, size, self.num_classes)

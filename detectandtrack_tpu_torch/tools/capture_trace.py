@@ -19,13 +19,12 @@ function (`engine/graphs.py`): the traced requests are graph replays, one
 device program each, and the trace shows the card's kernels and idle gaps
 but no host op or stage scope. `--eager` traces the uncaptured function
 instead (`.eager`), as a request ran before the port captured it: the
-traced requests then run inside `record_function` scopes named after the
-model's stages: backbone, fpn, rpn, nms, roi_transform, heads/<head>,
-decode. They map each kernel back to the code that launched it, the role
-tools/dump_hlo.py played for XLA (that tool has no counterpart here: there
-is no compiled graph to dump). The scopes are put on for the traced
-requests only, by wrapping the model's stage methods, so the model itself
-carries no profiler calls.
+trace then shows the model's own stage scopes (`utils/profiling.scope`,
+entered only while a profiler runs): model/backbone, model/fpn, model/rpn,
+model/nms, model/roi_transform, model/<head> and model/decode. They map
+each kernel back to the code that launched it, the role tools/dump_hlo.py
+played for XLA (that tool has no counterpart here: there is no compiled
+graph to dump).
 
 Beside the trace it writes work.json: per CUDA kernel group, the FLOP and
 bytes of one request, which tools/conv_roofline.py turns into a roofline
@@ -54,7 +53,6 @@ import sys
 from typing import Dict
 
 import torch
-from torch.profiler import record_function
 
 from ..core.config import load_cfg
 from ..engine.inference import make_detect_fn
@@ -72,44 +70,6 @@ from .trace_summary import group
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MAIN_CFG = "configs/video/3d_R50_T8_tubes_kps.yaml"
-
-
-def _scoped(fn, name):
-    def call(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return call
-
-
-@contextlib.contextmanager
-def stage_scopes(model):
-    """Run the model's stages inside `record_function` scopes: its backbone,
-    fpn, rpn head and heads (module forwards), roi_transform and keypoint
-    decode (methods), and the NMS functions the detector calls."""
-    patched = []
-
-    def patch(obj, attr, name):
-        if obj is not None and hasattr(obj, attr):
-            patched.append((obj, attr, obj.__dict__.get(attr)))
-            setattr(obj, attr, _scoped(getattr(obj, attr), name))
-
-    for stage, mod in (("backbone", "backbone"), ("fpn", "fpn"),
-                       ("rpn", "rpn_head"), ("heads/box_head", "box_head"),
-                       ("heads/kps_head", "kps_head"),
-                       ("heads/mask_head", "mask_head")):
-        patch(getattr(model, mod, None), "forward", stage)
-    patch(model, "roi_transform", "roi_transform")
-    patch(model, "_decode_keypoints", "decode")
-    patch(det_mod, "nms_fixed", "nms")
-    patch(det_mod, "soft_nms_fixed", "nms")
-    try:
-        yield
-    finally:
-        for obj, attr, old in reversed(patched):
-            if old is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, old)
 
 
 @contextlib.contextmanager
@@ -270,9 +230,8 @@ def main(argv=None):
             force_outputs(request())
     with trace(outdir, device=dev, record_shapes=True,
                with_flops=True) as prof:
-        with stage_scopes(model):
-            for _ in range(args.iters):
-                force_outputs(request())
+        for _ in range(args.iters):
+            force_outputs(request())
     size = torch.finfo(compute_dtype(cfg)).bits // 8
     ops = torch_op_work(prof.events(), size)
     kernels = {k: {"flops": w.flops / args.iters,

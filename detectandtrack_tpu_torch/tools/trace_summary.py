@@ -14,10 +14,11 @@ torch op whose "External id" the kernel carries: which `aten::` op the
 elementwise passes are). Then the card's busy share of the traced window
 (union of kernel intervals over first kernel start to last kernel end; the
 rest is idle: host syncs, launch gaps), and, where the trace has
-`record_function` scopes (capture_trace's stage names), kernel time by the
-innermost scope that was open when the kernel was launched, and the card's
-idle time by the scope the host was in meanwhile (host and card events
-share one clock in the trace).
+`record_function` scopes (the program's `model/*` and `train/*` phases,
+`utils/profiling.scope`), kernel time by the innermost scope that was open
+when the kernel was launched, and the card's idle time by the scope the
+host was in meanwhile (host and card events share one clock in the
+trace).
 """
 
 from __future__ import annotations

@@ -10,6 +10,15 @@ because the caller's tensors are on the CPU. `time_call` returns the event
 time and the host-clock time of the same calls side by side: they differ
 where `fn` waits on the host (the NMS loops read a count back each round)
 or where the host cannot enqueue work as fast as the card runs it.
+
+`scope(name)` is the program's one way to mark a phase for a trace: a
+`record_function` scope `name` (`<layer>/<phase>`, e.g. `train/update`,
+`model/backbone`) while a profiler runs, and otherwise a shared null
+context, so that an untraced call pays one flag check and builds no
+`record_function` (which costs tens of times more even with no profiler
+running). The profiler records the scopes on the clock of the device's
+kernels, so a trace puts each idle interval of the card down to the phase
+the host was in.
 """
 
 from __future__ import annotations
@@ -45,6 +54,17 @@ def _device_of(*trees) -> torch.device:
             return t.device
     raise ValueError("timing: no tensor among the arguments or outputs, so "
                      "no device to time on")
+
+
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def scope(name: str):
+    """The profiler scope `name` while a profiler runs, else a shared null
+    context (no `record_function` is built)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SCOPE
 
 
 @contextlib.contextmanager

@@ -202,7 +202,7 @@ def test_bench_conv_tool_on_cpu():
 
 def test_capture_trace_tool_on_cpu(tmp_path):
     """The tiny R-18 model through capture_trace on the CPU: a chrome trace
-    with the model's stage scopes, and work.json beside it."""
+    with the model's own stage scopes, and work.json beside it."""
     out = capture_trace.main([
         "64x96", "1", str(tmp_path), "realistic", "--device", "cpu",
         "--iters", "1", "--warmup", "1", "--opts",
@@ -215,8 +215,9 @@ def test_capture_trace_tool_on_cpu(tmp_path):
         "KRCNN.CONV_HEAD_DIM", "16"])
     events = trace_summary.load_trace(out)
     scopes = {e["name"] for e in events if e.get("cat") == "user_annotation"}
-    assert scopes >= {"backbone", "fpn", "rpn", "nms", "roi_transform",
-                      "heads/box_head", "heads/kps_head", "decode"}
+    assert scopes >= {"model/backbone", "model/fpn", "model/rpn",
+                      "model/nms", "model/roi_transform", "model/box_head",
+                      "model/kps_head", "model/decode"}
     with open(os.path.join(out, "work.json")) as f:
         work = json.load(f)
     assert work["iters"] == 1 and work["device"] == "cpu"
@@ -226,7 +227,7 @@ def test_capture_trace_tool_on_cpu(tmp_path):
         work["kernels"])
     assert work["kernels"]["roi_align_fwd_kernel"]["source"] == (
         "utils/roofline")
-    # The stage scopes come off after the trace.
+    # The tool patches nothing of the model.
     from detectandtrack_tpu_torch.models import detector
     from detectandtrack_tpu_torch.ops.nms import nms_fixed
     assert detector.nms_fixed is nms_fixed
@@ -250,7 +251,7 @@ def test_capture_trace_eager_flag_on_cpu(tmp_path):
     assert work["captured"] is False and work["mix"] == "degenerate"
     scopes = {e["name"] for e in trace_summary.load_trace(out)
               if e.get("cat") == "user_annotation"}
-    assert {"backbone", "nms", "decode"} <= scopes
+    assert {"model/backbone", "model/nms", "model/decode"} <= scopes
 
 
 class _Ev:

@@ -89,7 +89,7 @@ EXCLUDED = {
     },
     "tools/dump_hlo.py": {
         "*": "dumps XLA's HLO; the port has no compiled graph, and "
-             "capture_trace's stage scopes map kernels to code",
+             "the model's stage scopes map kernels to code",
     },
 }
 
