@@ -5,9 +5,10 @@
 
 Phases, one line each (any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the four native sources from csrc/ (one compiler
-     each, in parallel: conv1.cu, roi_align.cu and diag_roialign.cu with
-     nvcc for sm_90a, the tracker's hungarian.cpp with g++);
+  2. build: compile the native sources from csrc/ (one compiler each, in
+     parallel: conv1.cu, roi_align.cu, diag_roialign.cu, nms.cu and
+     affine.cu with nvcc for sm_90a, the tracker's hungarian.cpp with
+     g++);
   3. conv1 against its plain version (pad + F.conv3d) at the main path's
      (2, 8, 800, 1344, 3) clip at t=3 and t=1 and an odd-sized t=1 clip:
      bf16 through the bf16 tensor-core kernel, f32 through the 3-pass TF32
@@ -40,6 +41,14 @@ Phases, one line each (any failure ends the run with a nonzero exit):
   6c. [tools] the port's tools/bench_roialign.py and tools/bench_conv.py
      once each at 3 iterations (no profiler runs here: capture_trace is
      run by hand, as its own command);
+  6d. [affine] the conv epilogue kernel (kernels/affine.py) against its
+     plain version, bit for bit, at the sites of the main path at B=2
+     (conv1's and res2's affine + ReLU, res2_0's last conv with the
+     projection's affine, the stages' last convs with their shortcuts,
+     an FPN lateral with the upsampled top-down add, a posthoc conv's
+     bias, the RPN's 3 logits, a keypoint-head conv), bf16 and f32, each
+     with its time, its bound, the plain version's time and, as
+     `library_ms`, the PyTorch op chain the sites ran before;
   7. the inference slice at full width: the 3D R-50 T=8 keypoint model in
      bf16 with seeded random weights answers 4 requests of B=2 clips of
      8x800x1344 (3 through detect_with_proposals(run_rpn=True) with
@@ -126,7 +135,9 @@ Then it prints the kernels' JSON line (launches summed over the
 full-width paths, the [bench], [dataset], [finetune], [multigpu] and
 [surface-ops] runs among them (not the bench subprocess's), the torchrun children's counts included;
 conv1's f32 kernel counted over the parity phases, K3 on its own path,
-the RoIAlign backward's prep kernel beside its gather, the diagnostic
+the RoIAlign backward's prep kernel beside its gather, the NMS kernels
+and the conv epilogue summed over the serving and training paths that
+check them ([slice], [graphs], [train], [surface]), the diagnostic
 kernel per variant at p=7 with its tool's launches; each with its time,
 its plain version's, its bound and the one PyTorch call that computes
 the same function, where there is one),
@@ -745,6 +756,96 @@ def phase_nms(torch, results):
                     library_ms=None)
 
 
+# [affine]'s sites of the main path at B=2 clips of 8x800x1344: (label, y's
+# shape, scale?, shortcut: None / "plain" / "affine" / "up", ReLU?).
+AFFINE_SITES = [
+    ("conv1 affine+relu", (2, 8, 400, 672, 64), True, None, True),
+    ("res2 a affine+relu", (2, 8, 200, 336, 64), True, None, True),
+    ("res2_0 c + proj affine +relu", (2, 8, 200, 336, 256), True, "affine",
+     True),
+    ("res2 c + shortcut +relu", (2, 8, 200, 336, 256), True, "plain", True),
+    ("res3 c + shortcut +relu", (2, 8, 100, 168, 512), True, "plain", True),
+    ("res4 c + shortcut +relu", (2, 8, 50, 84, 1024), True, "plain", True),
+    ("res5 c + shortcut +relu", (2, 8, 25, 42, 2048), True, "plain", True),
+    ("FPN lateral P2 bias + top-down", (2, 8, 200, 336, 256), False, "up",
+     False),
+    ("FPN posthoc P2 bias", (2, 8, 200, 336, 256), False, None, False),
+    ("RPN logits P2 bias", (2, 1, 200, 336, 3), False, None, False),
+    ("keypoint conv bias+relu", (2 * 20 * 8, 1, 14, 14, 512), False, None,
+     True),
+]
+
+
+def phase_affine(torch, results):
+    """The conv epilogue kernel against its plain version at AFFINE_SITES,
+    bf16 and f32, bit for bit; each with the kernel's time (CUDA events
+    around 10 calls, which overwrite y in place as the sites do), its
+    bound, the plain version's time and, as `library_ms`, the op chain the
+    sites ran before (the per-channel broadcasts, the add, the ReLU and,
+    for the lateral, the upsampled copy), timed alike."""
+    import torch.nn.functional as F
+    from detectandtrack_tpu_torch.kernels import affine as ka
+    from detectandtrack_tpu_torch.models.fpn import upsample_nearest_2x
+    from detectandtrack_tpu_torch.utils import roofline
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, shape, has_scale, sc, relu in AFFINE_SITES:
+        c = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            y = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            s = torch.rand(c, device="cuda", generator=gen) + 0.5
+            b = torch.randn(c, device="cuda", generator=gen)
+            s = s if has_scale else None
+            r = rs = rb = None
+            if sc in ("plain", "affine"):
+                r = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            if sc == "up":
+                r = torch.randn(shape[:2] + (shape[2] // 2, shape[3] // 2,
+                                             c), device="cuda",
+                                generator=gen).to(dtype)
+            if sc == "affine":
+                rs = torch.rand(c, device="cuda", generator=gen) + 0.5
+                rb = torch.randn(c, device="cuda", generator=gen)
+            args = (s, b, r, rs, rb, relu)
+            want = ka.affine_epilogue_reference(y.clone(), *args)
+            got = ka.affine_epilogue(y, *args)
+            name = f"{label} {tuple(shape)} {str(dtype)[6:]}"
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise RuntimeError(f"{name}: differs from its plain version "
+                                   f"(max |diff| {err})")
+            del want
+
+            def chain():
+                v = y * s.to(dtype) + b.to(dtype) if s is not None else (
+                    y + b.to(dtype))
+                if sc == "up":
+                    v = v + upsample_nearest_2x(r)
+                elif sc == "plain":
+                    v = v + r
+                elif sc == "affine":
+                    v = v + (r * rs.to(dtype) + rb.to(dtype))
+                return F.relu(v) if relu else v
+
+            ms = _time_ms(torch, lambda: ka.affine_epilogue(y, *args))
+            plain_ms = _time_ms(torch, lambda: ka.affine_epilogue_reference(
+                y, *args), iters=3, warmup=1)
+            library_ms = _time_ms(torch, chain)
+            bound_ms, bound_by = roofline.bound(roofline.affine_work(
+                y.numel(), c, dtype, 0 if r is None else r.numel(),
+                scale=s is not None, shortcut_affine=rs is not None))
+            print(f"[affine] {name}: equal bit for bit; kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, op chain {library_ms:.3f} ms; "
+                  f"bound {bound_ms:.3f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of it", flush=True)
+            if sc == "plain" and c == 256 and dtype == torch.bfloat16:
+                results["affine_epilogue"] = dict(
+                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
+            del y, r
+
+
 def phase_diag(torch, results):
     """The diagnostic kernel (kernels/diag_roialign.py) on its path, the
     tool tools/diag_roialign.py: its main() at n=4800, p=7 and p=14, with
@@ -860,6 +961,7 @@ def _heads(model):
 
 
 def _reset_counters():
+    from detectandtrack_tpu_torch.kernels.affine import affine_epilogue
     from detectandtrack_tpu_torch.kernels import nms as kn
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
@@ -867,6 +969,7 @@ def _reset_counters():
     ra.roi_align_multilevel.launches = 0
     ra.roi_align_backward.launches = ra.backward_prep.launches = 0
     kn.nms_keep.launches = kn.soft_nms_confirm.launches = 0
+    affine_epilogue.launches = 0
 
 
 def _nms_counters():
@@ -902,6 +1005,62 @@ def _check_nms(tag, model, calls, passes=1, train=False):
                            f"{want} for {calls} calls")
     for k, v in got.items():
         NMS_LAUNCHES[k] += v
+    return got
+
+
+# The conv epilogue kernel's launches on the serving and training paths that
+# check them ([slice], [graphs], [train], [surface]): the kernels line's
+# count, without [affine]'s own calls.
+EPILOGUE_LAUNCHES = [0]
+
+
+def _epilogue_per_call(model, passes=1, train=False):
+    """The conv epilogue passes (`affine_epilogue` launches) one call of
+    `model` makes, counted from its modules: one for each conv with a bias
+    or a frozen-BN affine that runs where no gradient is needed (a block's
+    projection rides on its last conv's pass). A detect pass runs conv1,
+    the blocks of the stages `features` reads (C4: up to res4), the FPN,
+    the RPN head on each level, the box and keypoint heads; the mask head
+    runs on the first pass only. A training step needs gradients from the
+    first conv whose parameters train on, so only conv1 and the frozen
+    blocks that lead the body take the pass (none under the norm clip,
+    which makes every parameter need a gradient)."""
+    import itertools
+    from detectandtrack_tpu_torch.models.backbone import (Conv1, Conv3d,
+                                                          ConvAffine)
+
+    def sites(module):
+        return sum((isinstance(m, (Conv1, ConvAffine))
+                    and not name.endswith("proj"))
+                   or (isinstance(m, Conv3d) and m.bias is not None)
+                   for name, m in module.named_modules())
+
+    cfg, bb = model.cfg, model.backbone
+    stages = bb.stage_names[:4 if cfg.FPN.FPN_ON else 3]
+    body = [bb.conv1] + [getattr(bb, n) for names in stages for n in names]
+    if train:
+        return sum(map(sites, itertools.takewhile(
+            lambda m: not any(p.requires_grad for p in m.parameters()),
+            body)))
+    levels = (cfg.FPN.RPN_MAX_LEVEL - cfg.FPN.RPN_MIN_LEVEL + 1
+              if cfg.FPN.FPN_ON else 1)
+    per_pass = sum(map(sites, body)) + levels * sites(model.rpn_head) + sum(
+        sites(getattr(model, m)) for m in ("fpn", "box_head", "kps_head")
+        if hasattr(model, m))
+    mask = sites(model.mask_head) if hasattr(model, "mask_head") else 0
+    return passes * per_pass + mask
+
+
+def _check_epilogue(tag, model, calls, passes=1, train=False):
+    """The conv epilogue kernel's launches since `_reset_counters` against
+    `_epilogue_per_call` → the count."""
+    from detectandtrack_tpu_torch.kernels.affine import affine_epilogue
+    got = affine_epilogue.launches
+    want = calls * _epilogue_per_call(model, passes, train)
+    if got != want:
+        raise RuntimeError(f"{tag}: conv epilogue launches {got}, expected "
+                           f"{want} for {calls} calls")
+    EPILOGUE_LAUNCHES[0] += got
     return got
 
 
@@ -949,6 +1108,7 @@ def _serve(torch, tag, model, detect, warmup, requests, passes=1):
         secs.append(time.perf_counter() - t0)
     launches = _read_counters()
     nms = _check_nms(tag, model, len(requests), passes)
+    epilogues = _check_epilogue(tag, model, len(requests), passes)
     peak = torch.cuda.max_memory_allocated()
     heads = _heads(model)
     per_request = {"conv1": passes, "conv1_f32": 0, "roi_align_backward": 0,
@@ -972,7 +1132,8 @@ def _serve(torch, tag, model, detect, warmup, requests, passes=1):
           f"{[round(s, 4) for s in secs]} (median "
           f"{statistics.median(secs):.4f}); peak memory "
           f"{peak / 2 ** 30:.2f} GiB; launches {launches}, NMS kernels "
-          f"{nms}; {n_valid} valid detections", flush=True)
+          f"{nms}, conv epilogues {epilogues}; {n_valid} valid detections",
+          flush=True)
     return outs, launches
 
 
@@ -1154,6 +1315,7 @@ def phase_graphs(torch):
             eager_diff[k] = max(v, eager_diff.get(k, 0.0))
     launches, nms = _read_counters(), _check_nms("[graphs] main path",
                                                 model, 6)
+    epilogues = _check_epilogue("[graphs] main path", model, 6)
     per_call = {"conv1": 1, "conv1_f32": 0, "roi_align": len(_heads(model)),
                 "roi_align_backward": 0, "roi_align_backward_prep": 0}
     if launches != {k: 6 * v for k, v in per_call.items()} or \
@@ -1194,7 +1356,7 @@ def phase_graphs(torch):
           f"bit for bit); no host sync in an "
           f"eager call under set_sync_debug_mode(\"error"
           f"\"); launches of 4 eager calls + 2 replays {launches}, NMS "
-          f"kernels {nms}; request s (median of {2 * GRAPH_TIMED}): eager "
+          f"kernels {nms}, conv epilogues {epilogues}; request s (median of {2 * GRAPH_TIMED}): eager "
           f"{med['eager'][0]:.4f}, graphed {med['graphed'][0]:.4f} "
           f"({med['eager'][0] / med['graphed'][0]:.2f}x); graphed request's "
           f"CUDA-event span {busy:.4f} s, so the card idles >= "
@@ -1477,6 +1639,7 @@ def _train_steps(torch, tag, cfg, n_steps, seed):
         raise RuntimeError(f"{tag}: launch counters {launches}, expected "
                            f"{want} for {n_steps} steps")
     _check_nms(tag, model, n_steps, train=True)
+    epilogues = _check_epilogue(tag, model, n_steps, train=True)
     head_terms = {"box_head": {"loss_cls", "loss_bbox"},
                   "kps_head": {"loss_kps"}, "mask_head": {"loss_mask"}}
     terms = set.union({"loss_rpn_cls", "loss_rpn_bbox", "loss_total"},
@@ -1505,7 +1668,8 @@ def _train_steps(torch, tag, cfg, n_steps, seed):
           f"B={b} {t}x{h}x{w}: {n_steps} steps after 1 warm-up, step s "
           f"{[round(v, 4) for v in secs]} (median "
           f"{statistics.median(secs):.4f}); peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; launches {launches}; {moved}/"
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches}, conv epilogues "
+          f"{epilogues}; {moved}/"
           f"{len(state.params)} parameters moved; losses of the last step "
           f"{ {k: round(v, 4) for k, v in losses[-1].items()} }", flush=True)
     del model, state, step, grads, before, batch
@@ -3334,7 +3498,8 @@ def main() -> int:
           f"{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ["conv1", "roi_align", "diag_roialign", "nms", "hungarian"]
+    sources = ["conv1", "roi_align", "diag_roialign", "nms", "affine",
+               "hungarian"]
     _build.build(sources)
     for name in sources:
         _build.load_library(name)
@@ -3352,6 +3517,8 @@ def main() -> int:
     phase_backward(torch, results)
     torch.cuda.empty_cache()
     phase_nms(torch, results)
+    phase_affine(torch, results)
+    torch.cuda.empty_cache()
     diag = phase_diag(torch, results)
     phase_tools(torch)
     inference = phase_slice(torch)
@@ -3385,8 +3552,12 @@ def main() -> int:
     for name, n in NMS_LAUNCHES.items():
         if n == 0:
             raise RuntimeError(f"{name}: no launch on the paths that run it")
+    if EPILOGUE_LAUNCHES[0] == 0:
+        raise RuntimeError("affine_epilogue: no launch on the paths that run "
+                           "it")
     print(f"[launches] inference slice {inference}; graphs {graphs}; "
           f"NMS kernels on the serving and training paths {NMS_LAUNCHES}; "
+          f"conv epilogues there {EPILOGUE_LAUNCHES[0]}; "
           f"bench {bench}; "
           f"training slice "
           f"{training}; dataset paths {dataset}; fine-tuning path "
@@ -3434,6 +3605,10 @@ def main() -> int:
          "replaces": "detectandtrack_tpu/ops/nms.py:176",
          "launches": NMS_LAUNCHES["soft_nms_confirm"],
          **results["soft_nms_confirm"]},
+        {"name": "affine_epilogue", "route": "cuda",
+         "source": "detectandtrack_tpu_torch/csrc/affine.cu",
+         "replaces": None, "launches": EPILOGUE_LAUNCHES[0],
+         **results["affine_epilogue"]},
     ] + [{"name": f"diag_roialign_{variant}", "route": "cuda",
           "source": "detectandtrack_tpu_torch/csrc/diag_roialign.cu",
           "replaces": "tools/diag_roialign.py:140",

@@ -56,9 +56,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _counted_entries() -> List[Any]:
     """Every kernel entry point a forward can launch, with its counters."""
-    from ..kernels import conv1, nms, roi_align
+    from ..kernels import affine, conv1, nms, roi_align
     return [conv1.conv1, roi_align.roi_align_multilevel,
-            roi_align.roi_align_pairs, nms.nms_keep, nms.soft_nms_confirm]
+            roi_align.roi_align_pairs, nms.nms_keep, nms.soft_nms_confirm,
+            affine.affine_epilogue]
 
 
 def _read_counts() -> Dict[Tuple[int, str], Tuple[Any, int]]:

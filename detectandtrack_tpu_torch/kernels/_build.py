@@ -4,9 +4,10 @@ Each `csrc/<name>.cu` (a CUDA kernel, nvcc for `sm_90a`) or
 `csrc/<name>.cpp` (host code, g++) exposes a plain C interface and is
 compiled on first use (or by `build`, which runs one compiler per source in
 parallel) into `_build/<name>-<hash of the source>.so`; a changed source
-gets a new file, so a stale library is never loaded. Nothing is compiled or
-loaded at import time: the CPU tests import every module on a machine
-without nvcc.
+gets a new file, so a stale library is never loaded. The first load of
+one of the kernels a model's forward launches (`MODEL_SOURCES`) builds all
+of them together. Nothing is compiled or loaded at import time: the CPU
+tests import every module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+# The CUDA sources a model's forward or training step launches.
+MODEL_SOURCES = ("conv1", "roi_align", "nms", "affine")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -96,12 +99,12 @@ def build(names: Sequence[str]) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` or `.cpp` if needed and return the loaded
-    library."""
+    """Compile `csrc/<name>.cu` or `.cpp` if needed (with the rest of
+    `MODEL_SOURCES` if it is one of them) and return the loaded library."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        build([name])
+        build(MODEL_SOURCES if name in MODEL_SOURCES else [name])
         lib = ctypes.CDLL(_so_path(name))
         if _source(name).endswith(".cu"):
             lib.dat_error_string.argtypes = [ctypes.c_int]

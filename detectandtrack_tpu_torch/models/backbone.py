@@ -5,10 +5,18 @@ Activations are (B, T, H, W, C) at every module boundary, as in the JAX
 package. Inside, a conv views them as NCHW (t = 1: batch B·T) or NCTHW —
 both zero-copy channels-last views — and runs F.conv2d / F.conv3d. Params
 stay f32 and are cast to the compute dtype at use, like the flax modules.
+
+The elementwise work after each conv — its frozen-BN affine or bias, the
+residual or top-down add, the ReLU — runs through `conv_epilogue`: where no
+gradient is needed (`kernels/affine.py::wants_grad`) it is one pass of
+`affine_epilogue` over the conv's output; with a gradient it is the op
+chain as autograd sees it, each module's output the JAX module's of the
+same name.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -16,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.affine import affine_epilogue, wants_grad
 from ..kernels.conv1 import conv1_autograd
 from ..utils.profiling import scope
 
@@ -57,12 +66,31 @@ class AffineChannel(nn.Module):
         return x * self.scale.to(self.dtype) + self.bias.to(self.dtype)
 
 
+def _chain(y: torch.Tensor, relu: bool = False,
+           shortcut: Optional[torch.Tensor] = None,
+           shortcut_affine: Optional[nn.Module] = None) -> torch.Tensor:
+    """The op chain after a conv's bias or affine: + the shortcut (through
+    `shortcut_affine`; nearest-upsampled ×2 where it is at half y's H and
+    W), then the ReLU."""
+    if shortcut is not None:
+        if shortcut_affine is not None:
+            shortcut = shortcut_affine(shortcut)
+        if shortcut.shape != y.shape:          # the FPN's top-down add
+            from .fpn import upsample_nearest_2x
+            shortcut = upsample_nearest_2x(shortcut)
+        y = y + shortcut
+    return F.relu(y) if relu else y
+
+
 class Conv3d(nn.Module):
     """(B, T, H, W, Cin) → (B, T', H', W', Cout) conv with window (t, kh, kw)
     and same-padding ((k-1)·d // 2, ((k-1)·d + 1) // 2) per axis.
 
     `init_std` None is MSRA fan_out (the backbone default), a float a
     gaussian of that std. The weight is (Cout, Cin/groups, t, kh, kw).
+    `relu` and `shortcut` (at the output's shape, or at half its H and W
+    for a nearest ×2 upsample) are its epilogue: with a bias and no
+    gradient needed, one pass with the bias (`affine_epilogue`).
     """
 
     def __init__(self, cin: int, features: int,
@@ -92,7 +120,8 @@ class Conv3d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                shortcut: Optional[torch.Tensor] = None) -> torch.Tensor:
         w = self.weight.to(self.dtype)
         x = x.to(self.dtype)
         b, tt = x.shape[:2]
@@ -115,13 +144,17 @@ class Conv3d(nn.Module):
                  self.groups).movedim(1, -1)
         if per_frame:
             y = y.reshape((b, tt) + y.shape[1:])
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
-        return y
+        if self.bias is None:
+            return _chain(y, relu, shortcut)
+        if not wants_grad(y, self.bias, shortcut):
+            return affine_epilogue(y, None, self.bias, shortcut, relu=relu)
+        return _chain(y + self.bias.to(self.dtype), relu, shortcut)
 
 
 class ConvAffine(nn.Module):
-    """conv → frozen-BN affine."""
+    """conv → frozen-BN affine, then the `relu` and `shortcut` epilogue (a
+    `shortcut_affine`, the projection's AffineChannel, applied to the
+    shortcut); without a gradient one pass after the conv."""
 
     def __init__(self, cin: int, features: int,
                  kernel: Tuple[int, int, int] = (1, 3, 3),
@@ -133,8 +166,17 @@ class ConvAffine(nn.Module):
                            dilation=dilation, groups=groups)
         self.bn = AffineChannel(features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                shortcut: Optional[torch.Tensor] = None,
+                shortcut_affine: Optional[AffineChannel] = None
+                ) -> torch.Tensor:
+        y = self.conv(x)
+        sa = shortcut_affine
+        rs, rb = (sa.scale, sa.bias) if sa is not None else (None, None)
+        if not wants_grad(y, self.bn.scale, self.bn.bias, shortcut, rs, rb):
+            return affine_epilogue(y, self.bn.scale, self.bn.bias, shortcut,
+                                   rs, rb, relu)
+        return _chain(self.bn(y), relu, shortcut, shortcut_affine)
 
 
 class Conv1Kernel(nn.Module):
@@ -151,7 +193,8 @@ class Conv1Kernel(nn.Module):
 
 
 class Conv1(nn.Module):
-    """conv1 (the hand-written kernel on CUDA) → frozen-BN affine."""
+    """conv1 (the hand-written kernel on CUDA) → frozen-BN affine → ReLU if
+    `relu`; without a gradient one pass after the conv."""
 
     def __init__(self, time_kernel: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -160,9 +203,35 @@ class Conv1(nn.Module):
         self.conv = Conv1Kernel(time_kernel)
         self.bn = AffineChannel(64, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(conv1_autograd(x, self.conv.weight, self.time_kernel,
-                                      self.dtype))
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        y = conv1_autograd(x, self.conv.weight, self.time_kernel, self.dtype)
+        if not wants_grad(y, self.bn.scale, self.bn.bias):
+            return affine_epilogue(y, self.bn.scale, self.bn.bias,
+                                   relu=relu)
+        return _chain(self.bn(y), relu)
+
+
+def conv_epilogue(conv: nn.Module, x: torch.Tensor, relu: bool = False,
+                  shortcut: Optional[torch.Tensor] = None,
+                  proj: Optional[ConvAffine] = None) -> torch.Tensor:
+    """`conv(x)` (a Conv3d, ConvAffine or Conv1) + `shortcut` (`proj(
+    shortcut)` with a projection; nearest-upsampled ×2 where it is at half
+    the output's H and W), then the ReLU if `relu`. Where no gradient is
+    needed, the conv's bias or affine and all of that are its one pass
+    (the projection runs only its conv, its affine rides in the pass);
+    with one, `conv` and `proj` return their own outputs and the rest is
+    the op chain."""
+    params = [conv.parameters()] + (
+        [proj.parameters()] if proj is not None else [])
+    if wants_grad(x, shortcut, params=itertools.chain(*params)):
+        r = proj(shortcut) if proj is not None else shortcut
+        return _chain(conv(x), relu, r)
+    if shortcut is None:
+        return conv(x, relu=relu)
+    if proj is None:
+        return conv(x, relu=relu, shortcut=shortcut)
+    return conv(x, relu=relu, shortcut=proj.conv(shortcut),
+                shortcut_affine=proj.bn)
 
 
 class Bottleneck(nn.Module):
@@ -186,10 +255,9 @@ class Bottleneck(nn.Module):
         self.c = ConvAffine(features, out_features, (1, 1, 1), dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = self.proj(x) if self.proj is not None else x
-        y = F.relu(self.a(x))
-        y = F.relu(self.b(y))
-        return F.relu(self.c(y) + shortcut)
+        y = conv_epilogue(self.a, x, relu=True)
+        y = conv_epilogue(self.b, y, relu=True)
+        return conv_epilogue(self.c, y, relu=True, shortcut=x, proj=self.proj)
 
 
 class BasicBlock(nn.Module):
@@ -211,9 +279,8 @@ class BasicBlock(nn.Module):
                             dtype=dtype, dilation=dil)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = self.proj(x) if self.proj is not None else x
-        y = F.relu(self.a(x))
-        return F.relu(self.b(y) + shortcut)
+        y = conv_epilogue(self.a, x, relu=True)
+        return conv_epilogue(self.b, y, relu=True, shortcut=x, proj=self.proj)
 
 
 class ResNet(nn.Module):
@@ -263,7 +330,7 @@ class ResNet(nn.Module):
         """clips → {res2..res<last_stage>}; the later stages keep their
         parameters but do not run (C4 reads res4 only)."""
         with scope("model/backbone"):
-            y = F.relu(self.conv1(x))
+            y = conv_epilogue(self.conv1, x, relu=True)
             b, t, h, w, c = y.shape
             y = F.max_pool2d(y.reshape(b * t, h, w, c).permute(0, 3, 1, 2),
                              3, 2, 1)

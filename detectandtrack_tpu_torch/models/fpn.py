@@ -1,7 +1,9 @@
 """Feature Pyramid Network on (B, T, H, W, C) activations (port of
 detectandtrack_tpu/models/fpn.py): 1x1 laterals, nearest ×2 top-down, 3x3
 posthoc convs, and P6 as a stride-2 subsample of P5 or, with
-FPN.EXTRA_CONV_LEVELS, a stride-2 3x3 conv on P5."""
+FPN.EXTRA_CONV_LEVELS, a stride-2 3x3 conv on P5. A lateral's bias and the
+upsampled top-down add are its conv's epilogue (`conv_epilogue`): one pass
+where no gradient is needed."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 from torch import nn
 
 from ..utils.profiling import scope
-from .backbone import Conv3d
+from .backbone import Conv3d, conv_epilogue
 
 _STAGES = ("res2", "res3", "res4", "res5")       # strides 4..32
 
@@ -44,12 +46,11 @@ class FPN(nn.Module):
     def forward(self, feats: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         with scope("model/fpn"):
-            laterals = [getattr(self, f"lateral_{n}")(feats[n])
-                        for n in _STAGES]
-            td = laterals[-1]
+            td = self.lateral_res5(feats["res5"])
             outs = {"p5": td}
             for i in range(len(_STAGES) - 2, -1, -1):
-                td = laterals[i] + upsample_nearest_2x(td)
+                td = conv_epilogue(getattr(self, f"lateral_{_STAGES[i]}"),
+                                   feats[_STAGES[i]], shortcut=td)
                 outs[f"p{i + 2}"] = td
             for lvl in ("p2", "p3", "p4", "p5"):
                 outs[lvl] = getattr(self, f"posthoc_{lvl}")(outs[lvl])

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.profiling import scope
-from .backbone import Bottleneck, Conv3d
+from .backbone import Bottleneck, Conv3d, conv_epilogue
 
 
 class BoxHead2MLP(nn.Module):
@@ -85,7 +85,8 @@ class KeypointHead(nn.Module):
             r, t, p, _, c = roi_feats.shape
             x = roi_feats.reshape(r * t, 1, p, p, c)
             for i in range(self.num_convs):
-                x = F.relu(getattr(self, f"conv_fcn{i + 1}")(x))
+                x = conv_epilogue(getattr(self, f"conv_fcn{i + 1}"), x,
+                                  relu=True)
             x = x[:, 0].float().permute(0, 3, 1, 2)          # (R·T, C, P, P)
             logits = self.kps_score_lowres(x).permute(0, 2, 3, 1)
             size = logits.shape[1]
@@ -167,7 +168,8 @@ class MaskHead(nn.Module):
             r, t, p, _, c = roi_feats.shape
             x = roi_feats.reshape(r * t, 1, p, p, c)
             for i in range(4):
-                x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
+                x = conv_epilogue(getattr(self, f"mask_fcn{i + 1}"), x,
+                                  relu=True)
             x = x[:, 0].to(self.dtype).permute(0, 3, 1, 2)  # (R·T, C, P, P)
             up = self.conv5_mask
             x = F.relu(F.conv_transpose2d(x, up.weight.to(self.dtype),

@@ -7,12 +7,11 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import boxes as box_ops
 from ..ops.anchors import generate_anchors
-from .backbone import Conv3d
+from .backbone import Conv3d, conv_epilogue
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -41,7 +40,7 @@ class RPNHead(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T, H, W, C) → logits (B, H, W, A), deltas (B, H, W, A·4T)."""
         x = x.mean(dim=1, keepdim=True)
-        h = F.relu(self.conv(x))
+        h = conv_epilogue(self.conv, x, relu=True)
         return self.logits(h)[:, 0], self.deltas(h)[:, 0]
 
 

@@ -117,6 +117,21 @@ def conv1_work(shape: Sequence[int], t: int, dtype,
                key=lambda w: w.flops / peaks.flops(w.kind))
 
 
+def affine_work(y_elems: int, c: int, dtype, shortcut_elems: int = 0,
+                scale: bool = True, shortcut_affine: bool = False) -> Work:
+    """The conv epilogue (`kernels/affine.py`) over y_elems values of C
+    channels: y read and written, a shortcut of shortcut_elems values read,
+    each f32 (C,) parameter read once; 2 FLOP a value for the affine (1 for
+    a bias alone), 1 for the add, 2 more for a shortcut's affine, on the
+    CUDA cores (the ReLU's compare is not counted)."""
+    size = _size(dtype)
+    params = 1 + scale + 2 * shortcut_affine
+    n_bytes = (2 * y_elems + shortcut_elems) * size + params * c * 4
+    flops = y_elems * (1 + scale + (shortcut_elems > 0)
+                       + 2 * shortcut_affine)
+    return Work(n_bytes, float(flops), "f32")
+
+
 def roi_align_work(shapes: Sequence[Sequence[int]], strides: Sequence[int],
                    rois: torch.Tensor, slabs: torch.Tensor,
                    levels: torch.Tensor, p: int, dtype) -> Work:

@@ -7,10 +7,13 @@ conftest, which imports it):
         tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from detectandtrack_tpu_torch.kernels import affine as ka
 from detectandtrack_tpu_torch.kernels import diag_roialign as dr
 from detectandtrack_tpu_torch.kernels import roi_align as ra
 from detectandtrack_tpu_torch.kernels.conv1 import (conv1, conv1_autograd,
@@ -706,3 +709,156 @@ def test_graphed_detect_equals_eager_and_counts_replays(cuda):
         want = detect.eager(c)
         for k in want:
             assert torch.equal(out[k], want[k]), k
+
+
+AFFINE_MODES = ["bias", "affine", "shortcut", "shortcut_affine", "upsampled"]
+# The main path's channel counts (conv1 and res2 64, the FPN 256, the
+# stages' last convs up to 2048, the RPN's 3 logits) and one that is not a
+# multiple of 8.
+AFFINE_CHANNELS = [64, 256, 512, 1024, 2048, 3, 20]
+MAIN_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "configs", "video", "3d_R50_T8_tubes_kps.yaml")
+
+
+def _affine_operands(cuda, mode, dtype, c, shape=(2, 2, 6, 10), seed=0):
+    """y (shape + (c,)), scale (None for a bias-only pass), bias, and the
+    shortcut, its scale and bias as `mode` asks."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*size):
+        return torch.randn(size, device=cuda, generator=g)
+
+    y = (rand(*shape, c) * 3).to(dtype)
+    s, b = rand(c).abs() + 0.5, rand(c)
+    r = rs = rb = None
+    if mode in ("shortcut", "shortcut_affine"):
+        r = (rand(*shape, c) * 3).to(dtype)
+    if mode == "upsampled":
+        r = (rand(*shape[:-2], shape[-2] // 2, shape[-1] // 2, c) * 3).to(
+            dtype)
+    if mode == "shortcut_affine":
+        rs, rb = rand(c).abs() + 0.5, rand(c)
+    return y, (None if mode == "bias" else s), b, r, rs, rb
+
+
+def _affine_equal(y, s, b, r, rs, rb, relu):
+    want = ka.affine_epilogue_reference(y.clone(), s, b, r, rs, rb, relu)
+    before = ka.affine_epilogue.launches
+    got = ka.affine_epilogue(y, s, b, r, rs, rb, relu)
+    assert ka.affine_epilogue.launches == before + 1 and got is y
+    torch.cuda.synchronize()
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("mode", AFFINE_MODES)
+def test_affine_kernel_matches_plain(cuda, mode, relu, dtype):
+    """Bit for bit, at every channel count of AFFINE_CHANNELS."""
+    for c in AFFINE_CHANNELS:
+        assert _affine_equal(*_affine_operands(cuda, mode, dtype, c),
+                             relu), (mode, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["shortcut_affine", "upsampled"])
+def test_affine_kernel_matches_plain_at_a_main_path_size(cuda, mode, dtype):
+    """P3 of one clip (8 x 100 x 168 x 256): many trips of the grid-stride
+    loop."""
+    assert _affine_equal(*_affine_operands(cuda, mode, dtype, 256,
+                                           (1, 8, 100, 168)), True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_affine_kernel_on_unaligned_operands(cuda, dtype):
+    """A y and a shortcut 16-byte unaligned take the one-channel path."""
+    y, s, b, r, rs, rb = _affine_operands(cuda, "shortcut_affine", dtype, 64)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16
+        return out
+
+    assert _affine_equal(unaligned(y), s, b, unaligned(r), rs, rb, True)
+
+
+def test_affine_kernel_rejects_what_it_cannot_take(cuda):
+    y, s, b, r, rs, rb = _affine_operands(cuda, "shortcut_affine",
+                                          torch.float32, 8)
+    with pytest.raises(TypeError, match="dtype"):
+        ka.affine_epilogue(y.half(), s, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ka.affine_epilogue(y.transpose(1, 2), s, b)
+    with pytest.raises(ValueError, match="scale"):
+        ka.affine_epilogue(y, s.double(), b)
+    with pytest.raises(ValueError, match="bias"):
+        ka.affine_epilogue(y, s, b[:4].contiguous())
+    with pytest.raises(ValueError, match="shortcut"):
+        ka.affine_epilogue(y, s, b, r.transpose(1, 2))
+    with pytest.raises(ValueError, match="shortcut"):
+        ka.affine_epilogue(y, s, b, r.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shortcut"):
+        ka.affine_epilogue(y, s, b, r[:, :, :5].contiguous())
+    with pytest.raises(ValueError, match="together"):
+        ka.affine_epilogue(y, s, b, r, rs, None)
+    wide = torch.zeros((2, 1026), device=cuda)     # 1026 groups of 1
+    with pytest.raises(ValueError, match="groups"):
+        ka.affine_epilogue(wide, None, torch.zeros(1026, device=cuda))
+
+
+def _main_model(cuda, opts, train=False):
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.models.detector import build_model
+    cfg = load_cfg(MAIN_CFG, opts=["TEST.SHAPE_BUCKETS", "[[128, 192]]"]
+                   + opts)
+    return cfg, build_model(cfg, device=cuda, seed=0, train=train)
+
+
+def test_graphed_detect_makes_one_affine_launch_a_site(cuda):
+    """The main config at 128 x 192, graphed as the bench runs it: the
+    warm-up (then the capture) and a replay each add the sites
+    `epilogue_sites` counts from the model's modules."""
+    from detectandtrack_tpu_torch.engine.inference import make_detect_fn
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
+    from test_torch_affine import epilogue_sites
+    cfg, model = _main_model(cuda, [])
+    detect = make_detect_fn(model, with_proposals=True, run_rpn=True)
+    t = cfg.VIDEO.NUM_FRAMES
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    clip = torch.randn((1, t, 128, 192, 3), device=cuda, generator=gen)
+    tubes = torch.as_tensor(make_realistic_tubes(
+        1, cfg.RPN.POST_NMS_TOP_N_TEST, t, 128, 192), device=cuda)
+    sites = epilogue_sites(model)
+    for _ in range(2):
+        before = ka.affine_epilogue.launches
+        detect(clip, tubes)
+        torch.cuda.synchronize()
+        assert ka.affine_epilogue.launches == before + sites
+    assert detect.replays == 1
+
+
+@pytest.mark.parametrize("clip_norm", [10.0, 0.0])
+def test_training_step_affine_launches(cuda, clip_norm):
+    """A training step of the main config: none with the global-norm clip
+    (every parameter needs its gradient), one a site of the frozen conv1
+    and res2 without it."""
+    from detectandtrack_tpu_torch.engine import train as ttrain
+    from detectandtrack_tpu_torch.utils.synthetic import (
+        make_realistic_tubes, train_batch)
+    cfg, model = _main_model(cuda, ["SOLVER.CLIP_GRAD_NORM", clip_norm,
+                                    "SOLVER.BASE_LR", 1e-4], train=True)
+    state = ttrain.create_train_state(cfg, model)
+    step = ttrain.make_train_step(model, cfg)
+    t = cfg.VIDEO.NUM_FRAMES
+    batch = train_batch(np.random.default_rng(0), make_realistic_tubes(
+        1, 4, t, 128, 192, seed=1), [2], (128, 192))
+    before = ka.affine_epilogue.launches
+    step(state, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    res2 = [n for n, _ in model.backbone.named_children()
+            if n.startswith("res2_")]
+    frozen = 1 + 3 * len(res2) if cfg.RESNETS.FREEZE_AT >= 2 else 0
+    assert ka.affine_epilogue.launches - before == (
+        0 if clip_norm > 0 else frozen)
