@@ -6,9 +6,9 @@
 Phases, one line each (any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: compile the native sources from csrc/ (one compiler each, in
-     parallel: conv1.cu, roi_align.cu, diag_roialign.cu, nms.cu and
-     affine.cu with nvcc for sm_90a, the tracker's hungarian.cpp with
-     g++);
+     parallel: conv1.cu, roi_align.cu, diag_roialign.cu, nms.cu, affine.cu
+     and grouped_conv.cu with nvcc for sm_90a, the tracker's hungarian.cpp
+     with g++);
   3. conv1 against its plain version (pad + F.conv3d) at the main path's
      (2, 8, 800, 1344, 3) clip at t=3 and t=1 and an odd-sized t=1 clip:
      bf16 through the bf16 tensor-core kernel, f32 through the 3-pass TF32
@@ -49,11 +49,25 @@ Phases, one line each (any failure ends the run with a nonzero exit):
      bias, the RPN's 3 logits, a keypoint-head conv), bf16 and f32, each
      with its time, its bound, the plain version's time and, as
      `library_ms`, the PyTorch op chain the sites ran before;
+  6e. [grouped] the grouped 3x3 conv kernel (kernels/grouped_conv.py)
+     against its plain version at the ResNeXt-101 64x4d body's 7 site
+     shapes on 16 frames of 800x1344 (64 groups of 4-32 channels, stride
+     1 and 2, frozen-BN affine and ReLU): within a conv tolerance, and its
+     epilogue on its own conv output bit for bit the op chain's; each with
+     its time, its bound, the plain version's time and, as `library_ms`,
+     cuDNN's grouped conv + the epilogue pass;
   7. the inference slice at full width: the 3D R-50 T=8 keypoint model in
      bf16 with seeded random weights answers 4 requests of B=2 clips of
      8x800x1344 (3 through detect_with_proposals(run_rpn=True) with
      realistic tubes, 1 through the model's own RPN), the launch counters
      are checked, and every clip is tracked;
+  7a. [x101] the ResNeXt-101 64x4d FPN keypoint model at published widths
+     with the stride on the grouped 3x3 (the benchmark's `x101_64x4d`),
+     bf16, seeded weights, on the graphed detect with proposals and the
+     RPN: 1 warm-up and 2 requests of B=2 frames of 800x1344 with
+     realistic boxes, each request launching the grouped kernel once a
+     grouped site (33) and the epilogue pass once a site less those 33,
+     with the checks of 7;
   7b. [bench] the port's bench (detectandtrack_tpu_torch/bench.py) in this
      process at its default full width, R-50 T=8 800x1344, B=4 for infer
      and B=1 for train and stream, BENCH_ITERS=10 and
@@ -137,7 +151,8 @@ full-width paths, the [bench], [dataset], [finetune], [multigpu] and
 conv1's f32 kernel counted over the parity phases, K3 on its own path,
 the RoIAlign backward's prep kernel beside its gather, the NMS kernels
 and the conv epilogue summed over the serving and training paths that
-check them ([slice], [graphs], [train], [surface]), the diagnostic
+check them ([slice], [x101], [graphs], [train], [surface]), the grouped
+conv over [x101]'s requests, summed over [grouped]'s 7 sites, the diagnostic
 kernel per variant at p=7 with its tool's launches; each with its time,
 its plain version's, its bound and the one PyTorch call that computes
 the same function, where there is one),
@@ -846,6 +861,86 @@ def phase_affine(torch, results):
             del y, r
 
 
+GROUPED_FRAMES = 16     # [grouped]: frames of 800x1344, the cell's batch
+
+
+def phase_grouped(torch, results):
+    """The grouped 3x3 conv kernel against its plain version at the
+    ResNeXt-101 64x4d body's site shapes (`tools/bench_conv.py`'s
+    GROUPED_SITES on GROUPED_FRAMES frames of 800x1344, 64 groups, the
+    frozen-BN affine and ReLU of a block's middle conv): within a conv
+    tolerance (2^-6 of the plain output's largest |value|: cuDNN sums in
+    another order), and the kernel's epilogue on its own conv output
+    (scale 1, bias 0) bit for bit the op chain's. Each with the kernel's
+    time (CUDA events around 10 calls), its bound
+    (`roofline.grouped_conv_work`), the plain version's time and, as
+    `library_ms`, cuDNN's grouped conv (the port's `Conv3d`) + the epilogue
+    pass, what the sites run without the kernel. The kernels line's row
+    sums the 7 sites."""
+    from detectandtrack_tpu_torch.kernels import affine as ka
+    from detectandtrack_tpu_torch.kernels import grouped_conv as gc
+    from detectandtrack_tpu_torch.models.backbone import Conv3d
+    from detectandtrack_tpu_torch.tools.bench_conv import GROUPED_SITES
+    from detectandtrack_tpu_torch.utils import roofline
+    bf16, n, (fh, fw) = torch.bfloat16, GROUPED_FRAMES, (800, 1344)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               bound_by="bytes", library_ms=0.0)
+    for label, c, stride, div in GROUPED_SITES:
+        h, w, cg = -(-fh // div), -(-fw // div), c // 64
+        x = torch.randn((n, 1, h, w, c), device="cuda", generator=gen).to(
+            bf16)
+        wt = torch.randn((c, cg, 1, 3, 3), device="cuda", generator=gen) * (
+            2.0 / (9 * cg)) ** 0.5
+        sc = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = torch.randn(c, device="cuda", generator=gen) * 0.5
+        conv = Conv3d(c, c, (1, 3, 3), (1, stride, stride), dtype=bf16,
+                      groups=64).cuda()
+        with torch.no_grad():
+            conv.weight.copy_(wt)
+        name = f"{label} {tuple(x.shape)} {cg}/group s={stride}"
+        with torch.inference_mode():
+            y0 = gc.grouped_conv3x3(x, wt, torch.ones_like(sc),
+                                    torch.zeros_like(b), stride)
+            got = gc.grouped_conv3x3(x, wt, sc, b, stride, relu=True)
+            chain = ka.affine_epilogue_reference(y0, sc, b, relu=True)
+            want = gc.grouped_conv3x3_reference(x, wt, sc, b, stride,
+                                                relu=True)
+            torch.cuda.synchronize()
+            if not torch.equal(got, chain):
+                raise RuntimeError(f"[grouped] {name}: the epilogue on the "
+                                   "kernel's own conv differs from the op "
+                                   "chain")
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 2.0 ** -6 * max(1.0, want.float().abs().max().item())
+            if not err <= tol:
+                raise RuntimeError(f"[grouped] {name}: differs from its "
+                                   f"plain version by {err} (> {tol})")
+            del y0, got, chain, want
+            ms = _time_ms(torch, lambda: gc.grouped_conv3x3(
+                x, wt, sc, b, stride, relu=True))
+            plain_ms = _time_ms(torch, lambda: gc.grouped_conv3x3_reference(
+                x, wt, sc, b, stride, relu=True), iters=3, warmup=1)
+            library_ms = _time_ms(torch, lambda: ka.affine_epilogue(
+                conv(x), sc, b, relu=True))
+        bound_ms, bound_by = roofline.bound(roofline.grouped_conv_work(
+            (n, h, w, c), 64, stride))
+        print(f"[grouped] {name}: within {err:.4g} of its plain version "
+              f"(tolerance {tol:.4g}), epilogue bit for bit; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN + pass "
+              f"{library_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of it", flush=True)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("library_ms", library_ms)):
+            row[k] += v
+        if bound_by != "bytes":
+            row["bound_by"] = "bytes and flops"
+        del x, conv
+    torch.cuda.empty_cache()
+    results["grouped_conv3x3"] = row
+
+
 def phase_diag(torch, results):
     """The diagnostic kernel (kernels/diag_roialign.py) on its path, the
     tool tools/diag_roialign.py: its main() at n=4800, p=7 and p=14, with
@@ -965,7 +1060,9 @@ def _reset_counters():
     from detectandtrack_tpu_torch.kernels import nms as kn
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
+    from detectandtrack_tpu_torch.kernels.grouped_conv import grouped_conv3x3
     conv1.launches = conv1.launches_tc = conv1.launches_f32 = 0
+    grouped_conv3x3.launches = 0
     ra.roi_align_multilevel.launches = 0
     ra.roi_align_backward.launches = ra.backward_prep.launches = 0
     kn.nms_keep.launches = kn.soft_nms_confirm.launches = 0
@@ -1051,12 +1148,13 @@ def _epilogue_per_call(model, passes=1, train=False):
     return passes * per_pass + mask
 
 
-def _check_epilogue(tag, model, calls, passes=1, train=False):
+def _check_epilogue(tag, model, calls, passes=1, train=False, grouped=0):
     """The conv epilogue kernel's launches since `_reset_counters` against
-    `_epilogue_per_call` → the count."""
+    `_epilogue_per_call`, less the `grouped` sites a call whose grouped
+    conv kernel writes the epilogue itself → the count."""
     from detectandtrack_tpu_torch.kernels.affine import affine_epilogue
     got = affine_epilogue.launches
-    want = calls * _epilogue_per_call(model, passes, train)
+    want = calls * (_epilogue_per_call(model, passes, train) - grouped)
     if got != want:
         raise RuntimeError(f"{tag}: conv epilogue launches {got}, expected "
                            f"{want} for {calls} calls")
@@ -1066,13 +1164,16 @@ def _check_epilogue(tag, model, calls, passes=1, train=False):
 
 def _read_counters():
     """The launches since `_reset_counters`: conv1's bf16 and f32 (3-pass
-    TF32) kernels, K1, the RoIAlign backward's gather and prep."""
+    TF32) kernels, K1, the RoIAlign backward's gather and prep, the grouped
+    3x3 conv (0 on every path but [x101]'s)."""
     from detectandtrack_tpu_torch.kernels import roi_align as ra
     from detectandtrack_tpu_torch.kernels.conv1 import conv1
+    from detectandtrack_tpu_torch.kernels.grouped_conv import grouped_conv3x3
     return {"conv1": conv1.launches_tc, "conv1_f32": conv1.launches_f32,
             "roi_align": ra.roi_align_multilevel.launches,
             "roi_align_backward": ra.roi_align_backward.launches,
-            "roi_align_backward_prep": ra.backward_prep.launches}
+            "roi_align_backward_prep": ra.backward_prep.launches,
+            "grouped_conv3x3": grouped_conv3x3.launches}
 
 
 def _check_outputs(name, out, shapes, torch):
@@ -1088,13 +1189,15 @@ def _check_outputs(name, out, shapes, torch):
             raise RuntimeError(f"{name}: {key} has non-finite values")
 
 
-def _serve(torch, tag, model, detect, warmup, requests, passes=1):
+def _serve(torch, tag, model, detect, warmup, requests, passes=1,
+           grouped=0):
     """`detect(*request)` once on `warmup` (cuDNN plans), then timed on each
     of `requests` with the launch counters reset. Checked: conv1 launched
     once per pass, K1 once per pass and pooled head (the mask head on the
-    first pass only), no backward; every output finite and of the static
-    shape `detect_output_shapes` gives; some detection valid →
-    (outputs, launches)."""
+    first pass only), the grouped conv kernel `grouped` times a request
+    (each in place of an epilogue pass), no backward; every output finite
+    and of the static shape `detect_output_shapes` gives; some detection
+    valid → (outputs, launches)."""
     from detectandtrack_tpu_torch.engine.inference import detect_output_shapes
     detect(*warmup)
     torch.cuda.synchronize()
@@ -1108,13 +1211,14 @@ def _serve(torch, tag, model, detect, warmup, requests, passes=1):
         secs.append(time.perf_counter() - t0)
     launches = _read_counters()
     nms = _check_nms(tag, model, len(requests), passes)
-    epilogues = _check_epilogue(tag, model, len(requests), passes)
+    epilogues = _check_epilogue(tag, model, len(requests), passes,
+                                grouped=grouped)
     peak = torch.cuda.max_memory_allocated()
     heads = _heads(model)
     per_request = {"conv1": passes, "conv1_f32": 0, "roi_align_backward": 0,
                    "roi_align_backward_prep": 0,
                    "roi_align": passes * len(heads) - (passes - 1) * int(
-                       "mask_head" in heads)}
+                       "mask_head" in heads), "grouped_conv3x3": grouped}
     want = {k: len(requests) * v for k, v in per_request.items()}
     if launches != want:
         raise RuntimeError(f"{tag}: launch counters {launches}, expected "
@@ -1175,6 +1279,49 @@ def phase_slice(torch):
     print(f"[slice] tracked: {n_tracks} track ids, {linked} detections "
           "linked", flush=True)
     del model, detect, detect_p, requests, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+X101_CFG = "configs/video/2d_X101_64x4d_FPN_kps.yaml"
+
+
+def phase_x101(torch):
+    """The ResNeXt-101 64x4d FPN keypoint model at published widths with
+    the stride on the grouped 3x3 (RESNETS.STRIDE_1X1 False, as the
+    benchmark's `x101_64x4d`), bf16, seeded weights, on the graphed detect
+    with proposals and the RPN: `_serve`'s checks on 2 requests of B=2
+    frames of 800x1344 with realistic boxes, the counters reset just before
+    them; each request launches the grouped kernel once a grouped 3x3 site
+    and the epilogue pass once a site less those → launches."""
+    from detectandtrack_tpu_torch.core.config import load_cfg
+    from detectandtrack_tpu_torch.engine.graphs import GraphedFunction
+    from detectandtrack_tpu_torch.engine.inference import make_detect_fn
+    from detectandtrack_tpu_torch.models.backbone import Bottleneck
+    from detectandtrack_tpu_torch.models.detector import build_model
+    from detectandtrack_tpu_torch.utils.synthetic import make_realistic_tubes
+
+    cfg = load_cfg(os.path.join(REPO, X101_CFG),
+                   opts=["RESNETS.STRIDE_1X1", False])
+    b, (h, w) = 2, cfg.TEST.SHAPE_BUCKETS[0]
+    model = build_model(cfg, device="cuda", seed=0)
+    grouped = sum(isinstance(m, Bottleneck) and m.b.conv.groups == 64
+                  for m in model.backbone.modules())
+    if grouped != 33:
+        raise RuntimeError(f"[x101] {grouped} grouped 3x3 sites, not 33")
+    detect = make_detect_fn(model, with_proposals=True, run_rpn=True)
+    if not isinstance(detect, GraphedFunction):
+        raise RuntimeError("[x101] the detect of a CUDA model is not graphed")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tubes = torch.as_tensor(make_realistic_tubes(
+        b, cfg.RPN.POST_NMS_TOP_N_TEST, 1, h, w)).cuda()
+    requests = [(torch.randn((b, 1, h, w, 3), device="cuda", generator=gen),
+                 tubes) for _ in range(3)]
+    _, launches = _serve(torch, "x101", model, detect, requests[0],
+                         requests[1:], grouped=grouped)
+    if detect.replays != 2:
+        raise RuntimeError(f"[x101] {detect.replays} replays, not 2")
+    del model, detect, requests
     torch.cuda.empty_cache()
     return launches
 
@@ -1317,7 +1464,8 @@ def phase_graphs(torch):
                                                 model, 6)
     epilogues = _check_epilogue("[graphs] main path", model, 6)
     per_call = {"conv1": 1, "conv1_f32": 0, "roi_align": len(_heads(model)),
-                "roi_align_backward": 0, "roi_align_backward_prep": 0}
+                "roi_align_backward": 0, "roi_align_backward_prep": 0,
+                "grouped_conv3x3": 0}
     if launches != {k: 6 * v for k, v in per_call.items()} or \
             detect.replays != 2:
         raise RuntimeError(f"[graphs] 4 eager calls and 2 replays: launches "
@@ -1551,7 +1699,7 @@ def phase_bench(torch):
                         "roi_align_backward": 2 * n if mode == "train"
                         else 0,
                         "roi_align_backward_prep": 2 * n if mode == "train"
-                        else 0}
+                        else 0, "grouped_conv3x3": 0}
                 if launches != want:
                     raise RuntimeError(f"[bench] {mode}: launch counters "
                                        f"{launches}, expected {want}")
@@ -1634,7 +1782,8 @@ def _train_steps(torch, tag, cfg, n_steps, seed):
     want = {"conv1": n_steps, "conv1_f32": 0,
             "roi_align": len(heads) * n_steps,
             "roi_align_backward": len(heads) * n_steps,
-            "roi_align_backward_prep": len(heads) * n_steps}
+            "roi_align_backward_prep": len(heads) * n_steps,
+            "grouped_conv3x3": 0}
     if launches != want:
         raise RuntimeError(f"{tag}: launch counters {launches}, expected "
                            f"{want} for {n_steps} steps")
@@ -1931,7 +2080,8 @@ def phase_surface(torch):
     from detectandtrack_tpu_torch.models.detector import build_model
 
     total = {"conv1": 0, "conv1_f32": 0, "roi_align": 0,
-             "roi_align_backward": 0, "roi_align_backward_prep": 0}
+             "roi_align_backward": 0, "roi_align_backward_prep": 0,
+             "grouped_conv3x3": 0}
     b, n_req = 2, 2
     for path, tta in SURFACE_CFGS:
         cfg = load_cfg(os.path.join(REPO, path))
@@ -2092,7 +2242,8 @@ def phase_surface_ops(torch):
     n_win = sum(_windows(len(ds.video_frames(vid)), t) for vid in ds.videos())
     n_frames = sum(len(ds.video_frames(vid)) for vid in ds.videos())
     want = {"conv1": n_win, "conv1_f32": 0, "roi_align": 2 * n_win,
-            "roi_align_backward": 0, "roi_align_backward_prep": 0}
+            "roi_align_backward": 0, "roi_align_backward_prep": 0,
+            "grouped_conv3x3": 0}
     empty = os.path.join(PARITY_DIR, "empty_detections.pkl")
     with open(empty, "wb") as f:
         pickle.dump({"all_boxes": [[], []], "all_keyps": [[], []]}, f)
@@ -2519,7 +2670,8 @@ def phase_dataset(torch):
                            f"batches, {n_frames} frames")
     # Per batch: conv1 once, K1 at the box and the keypoint stage.
     want = {"conv1": n_batch, "conv1_f32": 0, "roi_align": 2 * n_batch,
-            "roi_align_backward": 0, "roi_align_backward_prep": 0}
+            "roi_align_backward": 0, "roi_align_backward_prep": 0,
+            "grouped_conv3x3": 0}
     out = {m: os.path.join(DATASET_DIR, m) for m in ("two", "one", "prop",
                                                     "tta")}
     print(f"[dataset] {card}; set: {len(ds.videos())} videos, {n_frames} "
@@ -2632,7 +2784,8 @@ def phase_dataset(torch):
     p1, p2 = len(scales) * -(-n_clips // b), -(-n_clips // b)
     want_tta = {"conv1": 2 * p1 + 2 * len(scales) * p2, "conv1_f32": 0,
                 "roi_align": 4 * p1 + 2 * len(scales) * p2,
-                "roi_align_backward": 0, "roi_align_backward_prep": 0}
+                "roi_align_backward": 0, "roi_align_backward_prep": 0,
+                "grouped_conv3x3": 0}
     with _Instrumented(torch) as ins_t:
         tta_launches, tta_wall, tta_peak = _cli_run(
             torch, "multi-scale TTA", "test", TTA_CFG, out["tta"], tta_opts, b,
@@ -2951,7 +3104,7 @@ def phase_finetune(torch, per_step):
         torch, ["--mode", "test", "--batch-size", "2", "--video-range", "0:1",
                 "--weights", final] + opts[:4] + opts[6:],
         {"conv1": 1, "conv1_f32": 0, "roi_align": 2, "roi_align_backward": 0,
-         "roi_align_backward_prep": 0})
+         "roi_align_backward_prep": 0, "grouped_conv3x3": 0})
     _add(total, launches)
     dets = load_object(os.path.join(run, "detections.pkl"))
     frames = dets.get(vid, [])
@@ -2987,7 +3140,8 @@ def phase_finetune(torch, per_step):
     want = {"conv1": 0, "conv1_f32": LEARN_STEPS + l_batch,
             "roi_align": heads * (LEARN_STEPS + l_batch),
             "roi_align_backward": heads * LEARN_STEPS,
-            "roi_align_backward_prep": heads * LEARN_STEPS}
+            "roi_align_backward_prep": heads * LEARN_STEPS,
+            "grouped_conv3x3": 0}
     if launches != want:
         raise RuntimeError(f"[finetune] learn: launch counters {launches}, "
                            f"expected {want}")
@@ -3287,7 +3441,8 @@ def phase_multigpu(torch, per_step):
                            f"by {worst[0]:.3g} of its max")
     want_launches = _scale(MULTIGPU_STEPS, per_step)
     golden_want = {"conv1": 0, "conv1_f32": 1, "roi_align": 2,
-                   "roi_align_backward": 2, "roi_align_backward_prep": 2}
+                   "roi_align_backward": 2, "roi_align_backward_prep": 2,
+                   "grouped_conv3x3": 0}
     for res in ranks:
         if res["backend"] != "gloo":
             raise RuntimeError(f"[multigpu] (a) backend {res['backend']}")
@@ -3405,7 +3560,7 @@ def phase_multigpu(torch, per_step):
     per_rank = -(-n_win // 2)           # global batches, one clip a rank
     want_launches = {"conv1": per_rank, "conv1_f32": 0,
                      "roi_align": 2 * per_rank, "roi_align_backward": 0,
-                     "roi_align_backward_prep": 0}
+                     "roi_align_backward_prep": 0, "grouped_conv3x3": 0}
     for res in ranks:
         if not any(f"rank {res['rank']} of 2, backend gloo" in m
                    for m in res["mesh_lines"]):
@@ -3421,7 +3576,8 @@ def phase_multigpu(torch, per_step):
         launches, one_wall, _ = _cli_run(
             torch, "test B=1", "test", DATASET_CFG, one, opts, 1,
             {"conv1": n_win, "conv1_f32": 0, "roi_align": 2 * n_win,
-             "roi_align_backward": 0, "roi_align_backward_prep": 0})
+             "roi_align_backward": 0, "roi_align_backward_prep": 0,
+             "grouped_conv3x3": 0})
     _add(total, launches)
     got_path = os.path.join(out_c, "test", "detections.pkl")
     n_valid = _check_dataset_dets("[multigpu] (c) test", got_path, ds, d)
@@ -3499,7 +3655,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = ["conv1", "roi_align", "diag_roialign", "nms", "affine",
-               "hungarian"]
+               "grouped_conv", "hungarian"]
     _build.build(sources)
     for name in sources:
         _build.load_library(name)
@@ -3519,9 +3675,11 @@ def main() -> int:
     phase_nms(torch, results)
     phase_affine(torch, results)
     torch.cuda.empty_cache()
+    phase_grouped(torch, results)
     diag = phase_diag(torch, results)
     phase_tools(torch)
     inference = phase_slice(torch)
+    x101 = phase_x101(torch)
     graphs = phase_graphs(torch)
     bench = phase_bench(torch)
     # With random weights (no pretrained backbone, identity frozen-BN
@@ -3555,7 +3713,8 @@ def main() -> int:
     if EPILOGUE_LAUNCHES[0] == 0:
         raise RuntimeError("affine_epilogue: no launch on the paths that run "
                            "it")
-    print(f"[launches] inference slice {inference}; graphs {graphs}; "
+    print(f"[launches] inference slice {inference}; X-101 {x101}; "
+          f"graphs {graphs}; "
           f"NMS kernels on the serving and training paths {NMS_LAUNCHES}; "
           f"conv epilogues there {EPILOGUE_LAUNCHES[0]}; "
           f"bench {bench}; "
@@ -3609,6 +3768,10 @@ def main() -> int:
          "source": "detectandtrack_tpu_torch/csrc/affine.cu",
          "replaces": None, "launches": EPILOGUE_LAUNCHES[0],
          **results["affine_epilogue"]},
+        {"name": "grouped_conv3x3", "route": "cuda",
+         "source": "detectandtrack_tpu_torch/csrc/grouped_conv.cu",
+         "replaces": None, "launches": x101["grouped_conv3x3"],
+         **results["grouped_conv3x3"]},
     ] + [{"name": f"diag_roialign_{variant}", "route": "cuda",
           "source": "detectandtrack_tpu_torch/csrc/diag_roialign.cu",
           "replaces": "tools/diag_roialign.py:140",

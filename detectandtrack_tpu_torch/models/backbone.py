@@ -9,9 +9,10 @@ stay f32 and are cast to the compute dtype at use, like the flax modules.
 The elementwise work after each conv — its frozen-BN affine or bias, the
 residual or top-down add, the ReLU — runs through `conv_epilogue`: where no
 gradient is needed (`kernels/affine.py::wants_grad`) it is one pass of
-`affine_epilogue` over the conv's output; with a gradient it is the op
-chain as autograd sees it, each module's output the JAX module's of the
-same name.
+`affine_epilogue` over the conv's output, or, for a ResNeXt block's grouped
+3x3 conv on the card, part of the conv's own kernel
+(`kernels/grouped_conv.py`); with a gradient it is the op chain as autograd
+sees it, each module's output the JAX module's of the same name.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import grouped_conv
 from ..kernels.affine import affine_epilogue, wants_grad
 from ..kernels.conv1 import conv1_autograd
 from ..utils.profiling import scope
@@ -154,7 +156,9 @@ class Conv3d(nn.Module):
 class ConvAffine(nn.Module):
     """conv → frozen-BN affine, then the `relu` and `shortcut` epilogue (a
     `shortcut_affine`, the projection's AffineChannel, applied to the
-    shortcut); without a gradient one pass after the conv."""
+    shortcut); without a gradient one pass after the conv, or, for the
+    grouped 3x3 convs `kernels/grouped_conv.takes`, one kernel that writes
+    the epilogue itself."""
 
     def __init__(self, cin: int, features: int,
                  kernel: Tuple[int, int, int] = (1, 3, 3),
@@ -170,6 +174,12 @@ class ConvAffine(nn.Module):
                 shortcut: Optional[torch.Tensor] = None,
                 shortcut_affine: Optional[AffineChannel] = None
                 ) -> torch.Tensor:
+        if (shortcut_affine is None and grouped_conv.takes(self.conv, x,
+                                                           shortcut)
+                and not wants_grad(x, shortcut, params=self.parameters())):
+            return grouped_conv.grouped_conv3x3(
+                x, self.conv.weight, self.bn.scale, self.bn.bias,
+                self.conv.strides[1], shortcut, relu)
         y = self.conv(x)
         sa = shortcut_affine
         rs, rb = (sa.scale, sa.bias) if sa is not None else (None, None)

@@ -17,7 +17,15 @@ through the module the port's model runs:
          the last two rows' difference is what fusing that epilogue into
          K2 could save at most;
   res2   res2's 3x3x3 temporal conv, (B, 8, 200, 336, 64) -> 64, through
-         cuDNN (the port's `Conv3d`).
+         cuDNN (the port's `Conv3d`);
+  grouped  the ResNeXt-101 64x4d body's grouped 3x3 convs with their
+         frozen-BN affine and ReLU, on B frames (default 16) of the size:
+         each stage's stride-1 site (groups of 4, 8, 16, 32 channels) and
+         the stride-2 first sites of res3-res5, as `grouped_conv3x3`'s
+         kernel (`kernel`), cuDNN's grouped conv + the epilogue pass
+         (`cudnn+pass`, what the sites ran before) and the plain version
+         (`plain`); each row adds its bound (`utils/roofline.
+         grouped_conv_work`) and share.
 
 Each row prints milliseconds per call (CUDA events, `utils/profiling`),
 achieved TFLOP/s and the % of the card's dense bf16 peak (by device name,
@@ -36,7 +44,10 @@ import sys
 import torch
 import torch.nn.functional as F
 
+from ..kernels.affine import affine_epilogue
 from ..kernels.conv1 import conv1
+from ..kernels.grouped_conv import (grouped_conv3x3,
+                                    grouped_conv3x3_reference)
 from ..models.backbone import AffineChannel, Conv1, Conv3d
 from ..utils import roofline
 from ..utils.env import card_line
@@ -56,7 +67,7 @@ def _init(module, seed):
 
 def _rows(variants, iters, peaks):
     rows = []
-    for name, fn, args, flops in variants:
+    for name, fn, args, flops, *work in variants:
         with torch.inference_mode():
             t = time_call(fn, *args, iters=iters, warmup=2)
         row = {"name": name, "ms": t.seconds * 1e3, "tflops": None,
@@ -67,6 +78,12 @@ def _rows(variants, iters, peaks):
             row["pct_peak"] = 100 * flops / t.seconds / peaks.bf16_flops
             line += (f" {row['tflops']:8.2f} TFLOP/s {row['pct_peak']:5.1f}%"
                      " of peak")
+            if work:
+                row["bound_ms"], row["bound_by"] = roofline.bound(work[0],
+                                                                  peaks)
+                row["pct_bound"] = 100 * row["bound_ms"] / row["ms"]
+                line += (f"; bound {row['bound_ms']:.3f} ms "
+                         f"({row['bound_by']}) {row['pct_bound']:5.1f}%")
         print(line, flush=True)
         rows.append(row)
     return rows
@@ -107,13 +124,45 @@ def bench_res2(dev, b, hw, gen):
     return [(f"res2 3x3x3 B={b}", conv, (x,), flops)]
 
 
+# (stage, channels, stride, input H and W as a share of the frame's) of the
+# ResNeXt-101 64x4d body's grouped 3x3 sites at 64 groups: each stage's
+# stride-1 site, then the stride-2 first sites of res3-res5.
+GROUPED_SITES = [("res2", 256, 1, 4), ("res3", 512, 1, 8),
+                 ("res4", 1024, 1, 16), ("res5", 2048, 1, 32),
+                 ("res3_0", 512, 2, 4), ("res4_0", 1024, 2, 8),
+                 ("res5_0", 2048, 2, 16)]
+
+
+def bench_grouped(dev, b, hw, gen):
+    out = []
+    for i, (name, c, s, div) in enumerate(GROUPED_SITES):
+        h, w = -(-hw[0] // div), -(-hw[1] // div)
+        conv = _init(Conv3d(c, c, (1, 3, 3), (1, s, s), dtype=BF16,
+                            groups=64), 10 + i).to(dev)
+        bn = _init(AffineChannel(c, BF16), 20 + i).to(dev)
+        x = torch.randn((b, 1, h, w, c), generator=gen, device=dev).to(BF16)
+        work = roofline.grouped_conv_work((b, h, w, c), 64, s)
+        args = (conv.weight, bn.scale, bn.bias, s)
+        tag = f"{name} {c // 64}/group s={s} B={b}"
+        out += [
+            (f"{tag} kernel", lambda v, a=args: grouped_conv3x3(
+                v, *a, relu=True), (x,), work.flops, work),
+            (f"{tag} cudnn+pass", lambda v, m=conv, n=bn: affine_epilogue(
+                m(v), n.scale, n.bias, relu=True), (x,), work.flops, work),
+            (f"{tag} plain", lambda v, a=args: grouped_conv3x3_reference(
+                v, *a, relu=True), (x,), work.flops, work)]
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("which", nargs="?", default="all",
-                    choices=("kps", "conv1", "res2", "all"))
+                    choices=("kps", "conv1", "res2", "grouped", "all"))
     ap.add_argument("iters", nargs="?", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="clips (default 2), or frames for grouped "
+                    "(default 16)")
     ap.add_argument("--n", type=int, default=320,
                     help="keypoint-head rois (B·T·top detections)")
     ap.add_argument("--size", default="800x1344")
@@ -131,12 +180,15 @@ def main(argv=None):
     print(f"bench_conv: bf16 ({where})", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     variants = []
+    batch = args.batch or 2
     if args.which in ("kps", "all"):
         variants += bench_kps(dev, args.n, gen)
     if args.which in ("conv1", "all"):
-        variants += bench_conv1(dev, args.batch, hw, gen)
+        variants += bench_conv1(dev, batch, hw, gen)
     if args.which in ("res2", "all"):
-        variants += bench_res2(dev, args.batch, hw, gen)
+        variants += bench_res2(dev, batch, hw, gen)
+    if args.which == "grouped":
+        variants += bench_grouped(dev, args.batch or 16, hw, gen)
     return _rows(variants, args.iters, peaks)
 
 

@@ -132,6 +132,31 @@ def affine_work(y_elems: int, c: int, dtype, shortcut_elems: int = 0,
     return Work(n_bytes, float(flops), "f32")
 
 
+def grouped_conv_flops(shape: Sequence[int], groups: int, stride: int
+                       ) -> float:
+    """A grouped 3x3 conv on (N, H, W, C) at `stride`, same-padded: 2 per
+    multiply-add, 9 x C / groups of them per output, the count of the plain
+    F.conv2d."""
+    n, h, w, c = shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    return 2.0 * n * ho * wo * c * 9 * (c // groups)
+
+
+def grouped_conv_work(shape: Sequence[int], groups: int, stride: int,
+                      shortcut: bool = False) -> Work:
+    """The grouped 3x3 conv with its epilogue (`kernels/grouped_conv.py`)
+    in bf16 on the tensor cores: x read once, the f32 weights, scale and
+    bias read once, the output written once (and a shortcut at its shape
+    read once)."""
+    n, h, w, c = shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    outs = n * ho * wo * c
+    n_bytes = (n * h * w * c + outs * (1 + shortcut)) * 2 + (
+        c * 9 * (c // groups) + 2 * c) * 4
+    return Work(float(n_bytes), grouped_conv_flops(shape, groups, stride),
+                "bf16")
+
+
 def roi_align_work(shapes: Sequence[Sequence[int]], strides: Sequence[int],
                    rois: torch.Tensor, slabs: torch.Tensor,
                    levels: torch.Tensor, p: int, dtype) -> Work:

@@ -68,17 +68,19 @@ _MODEL_SECTIONS = ("MODEL", "RESNETS", "FPN", "RPN", "FAST_RCNN", "KRCNN",
 _JAX_RUNS = {}
 
 
-def check_config(name):
-    """Build `name` small in both packages, run one clip, compare."""
+def check_config(name, opts=()):
+    """Build `name` small in both packages (with `opts` on top of
+    `small_opts`), run one clip, compare."""
     t = _frames(name)
     clip = np.random.default_rng(7).normal(size=(1, t, H, W, 3)).astype(
         np.float32)
     path = f"configs/video/{name}.yaml"
-    cfg = load_cfg(path, opts=small_opts(name))
+    opts = small_opts(name) + list(opts)
+    cfg = load_cfg(path, opts=opts)
     tta = cfg.TEST.BBOX_AUG_ENABLED
     key = tuple(repr(getattr(cfg, s)) for s in _MODEL_SECTIONS)
     if key not in _JAX_RUNS:
-        _, jm, params, tm = _pair(path, small_opts(name), clip.shape, seed=3)
+        _, jm, params, tm = _pair(path, opts, clip.shape, seed=3)
         method = (GeneralizedRCNN.detect_tta if tta
                   else GeneralizedRCNN.__call__)
         _JAX_RUNS[key] = params, jax.jit(
@@ -122,6 +124,18 @@ def check_config(name):
 @pytest.mark.parametrize("name", [n for n in CONFIGS if _frames(n) == 1])
 def test_config_matches_jax(name):
     check_config(name)
+
+
+def test_x101_with_the_stride_on_the_grouped_3x3_matches_jax():
+    """The benchmark's ResNeXt-101 64x4d puts each stage's stride on the
+    grouped 3x3 (Detectron's RESNETS.STRIDE_1X1 False; the YAML keeps the
+    1x1): the port against the JAX package there, at 4 groups of 4."""
+    cfg, tm, _, _ = check_config("2d_X101_64x4d_FPN_kps",
+                                 ["RESNETS.STRIDE_1X1", False])
+    assert not cfg.RESNETS.STRIDE_1X1 and cfg.RESNETS.NUM_GROUPS == 4
+    block = tm.backbone.res3_0
+    assert block.a.conv.strides == (1, 1, 1)
+    assert block.b.conv.strides == (1, 2, 2) and block.b.conv.groups == 4
 
 
 def test_every_config_builds():
